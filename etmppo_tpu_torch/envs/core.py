@@ -1,0 +1,51 @@
+"""Batched environment protocol on the device
+(counterpart of ``etmppo_tpu/envs/core.py``).
+
+An environment steps all W workers at once: its state is a NamedTuple of
+tensors with a leading worker axis, on the env's device.
+
+* ``observation_shape`` (images NHWC), ``action_branches`` (arity per
+  multi-discrete branch), ``max_episode_steps``, ``info_keys``;
+* ``sample_reset_draws(generator)``: the random values a reset of all W
+  workers consumes, drawn from an explicit generator. JAX's and PyTorch's
+  generators differ, so tests hand ``reset`` the values the JAX env drew;
+* ``reset(draws) -> (state, obs)``;
+* ``step(state, actions) -> (state, obs, reward, done, info)``: ``reward`` is
+  the training reward, ``info`` per-episode statistics read where ``done``.
+
+Auto-reset lives in the rollout (``training/rollout.py``), with
+``select_state``.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Tuple
+
+import torch
+
+
+def select_state(mask: torch.Tensor, new: NamedTuple, old: NamedTuple
+                 ) -> NamedTuple:
+    """Field-wise ``where(mask[w], new, old)`` over the worker axis."""
+    def pick(a, b):
+        return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+    return type(old)(*(pick(a, b) for a, b in zip(new, old)))
+
+
+class TorchEnv:
+    """Base class documenting the batched env interface."""
+
+    observation_shape: Tuple[int, ...]
+    action_branches: Tuple[int, ...]
+    max_episode_steps: int
+    info_keys: Tuple[str, ...]
+    n_workers: int
+    device: torch.device
+
+    def sample_reset_draws(self, generator: torch.Generator) -> Any:
+        raise NotImplementedError
+
+    def reset(self, draws: Any):
+        raise NotImplementedError
+
+    def step(self, state: Any, actions: torch.Tensor):
+        raise NotImplementedError

@@ -1,0 +1,186 @@
+"""Rollout on the device (counterpart of ``etmppo_tpu/training/rollout.py``).
+
+A Python loop over ``worker_steps`` takes the place of the JAX ``scan``. Each
+step runs the policy on the KV-cache path: the memory window's K/V are
+gathered from per-worker caches, and only the new memory item is projected.
+Every new memory item is also written once to a tape; training rebuilds its
+windows from (pre-rollout snapshot, tape).
+
+Step order: store obs / episode step -> policy forward -> write the memory
+item at ``(w, episode_step)`` -> sample actions -> env step -> where done:
+reset the env, zero the worker's memory, reset its K/V caches to the
+PE-only projections and its episode step to 0.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from ..config import TrainConfig
+from ..envs.core import TorchEnv, select_state
+from ..models.actor_critic import ActorCriticModel
+from ..ops import distributions
+from ..ops.gae import calc_advantages
+from ..ops.memory_index import build_memory_indices, build_memory_mask
+
+
+class RolloutState(NamedTuple):
+    """Sampler state carried from one update to the next."""
+    env_state: NamedTuple       # batched env state, leading axis W
+    obs: torch.Tensor           # (W, *obs_shape)
+    episode_step: torch.Tensor  # (W,) int64
+    memory: torch.Tensor        # (W, max_ep, blocks, D) live episodic memory
+
+
+class RolloutBatch(NamedTuple):
+    """One update's training data."""
+    obs: torch.Tensor            # (W, T, *obs_shape)
+    actions: torch.Tensor        # (W, T, n_branches) int64
+    log_probs: torch.Tensor      # (W, T, n_branches)
+    values: torch.Tensor         # (W, T)
+    advantages: torch.Tensor     # (W, T)
+    episode_steps: torch.Tensor  # (W, T) int64, before the step
+    dones: torch.Tensor          # (W, T) bool
+    tape: torch.Tensor           # (W, T, blocks, D) new memory item per step
+    snapshot: torch.Tensor       # (W, max_ep, blocks, D) pre-rollout memory
+    episode_infos: Dict[str, torch.Tensor]  # each (W, T); valid where dones
+
+
+class RolloutFn:
+    """Collects ``worker_steps`` steps of all workers with ``model``. Random
+    draws (actions, env resets) come from ``generator``, on the env's
+    device."""
+
+    def __init__(self, config: TrainConfig, env: TorchEnv,
+                 model: ActorCriticModel, generator: torch.Generator):
+        self.config = config
+        self.env = env
+        self.model = model
+        self.generator = generator
+        self.device = env.device
+        trx = config.transformer
+        self.max_ep = env.max_episode_steps
+        self.mask_table = torch.as_tensor(
+            build_memory_mask(trx.memory_length), device=self.device)
+        self.index_table = torch.as_tensor(
+            build_memory_indices(self.max_ep, trx.memory_length),
+            device=self.device)
+
+    def init_state(self) -> RolloutState:
+        trx = self.config.transformer
+        W = self.config.n_workers
+        env_state, obs = self.env.reset(self.reset_draws())
+        return RolloutState(
+            env_state=env_state, obs=obs,
+            episode_step=torch.zeros(W, dtype=torch.int64, device=self.device),
+            memory=torch.zeros(W, self.max_ep, trx.num_blocks, trx.embed_dim,
+                               device=self.device))
+
+    # Random draws, one method each so that a test can inject the JAX ones.
+
+    def reset_draws(self):
+        return self.env.sample_reset_draws(self.generator)
+
+    def sample_actions(self, logits, step: int):
+        del step
+        return distributions.sample_multi(logits, self.generator)
+
+    @torch.no_grad()
+    def __call__(self, state: RolloutState
+                 ) -> Tuple[RolloutState, RolloutBatch]:
+        cfg = self.config
+        W, T = cfg.n_workers, cfg.worker_steps
+        L = cfg.transformer.memory_length
+        dev = self.device
+        model = self.model
+        workers = torch.arange(W, device=dev)
+        window = torch.arange(L, device=dev)
+        slots = torch.arange(self.max_ep, device=dev).expand(W, -1)
+
+        snapshot = state.memory
+        memory = snapshot.clone()
+        # Params are fixed within a rollout: project the carried-in memory
+        # into K/V caches once. Unwritten slots are zero, so their K/V are
+        # the PE-only projections.
+        k_cache, v_cache = model.project_memory(memory, slots)
+        pe_k, pe_v = model.pe_kv()
+
+        n_br = len(self.env.action_branches)
+        out = dict(
+            obs=torch.empty((W, T) + tuple(state.obs.shape[1:]), device=dev),
+            actions=torch.empty(W, T, n_br, dtype=torch.int64, device=dev),
+            log_probs=torch.empty(W, T, n_br, device=dev),
+            values=torch.empty(W, T, device=dev),
+            rewards=torch.empty(W, T, device=dev),
+            dones=torch.empty(W, T, dtype=torch.bool, device=dev),
+            episode_steps=torch.empty(W, T, dtype=torch.int64, device=dev),
+            tape=torch.empty((W, T) + tuple(memory.shape[2:]), device=dev))
+        infos = {k: torch.empty(W, T, device=dev) for k in self.env.info_keys}
+
+        env_state, obs, e = state.env_state, state.obs, state.episode_step
+        for t in range(T):
+            mask = self.mask_table[e.clamp(0, L - 1)]                 # (W, L)
+            rows = (e - (L - 1)).clamp(min=0)[:, None] + window       # (W, L)
+            logits, value, mem_item = model.forward_with_kv(
+                obs, k_cache[workers[:, None], rows],
+                v_cache[workers[:, None], rows], mask)
+            memory[workers, e] = mem_item
+            k_item, v_item = model.project_memory(mem_item, e)
+            k_cache[workers, e] = k_item
+            v_cache[workers, e] = v_item
+            actions, log_probs = self.sample_actions(logits, t)
+
+            env_state, obs_next, reward, done, info = self.env.step(
+                env_state, actions)
+            reset_state, reset_obs = self.env.reset(self.reset_draws())
+            env_state = select_state(done, reset_state, env_state)
+            obs_next = torch.where(
+                done.reshape((W,) + (1,) * (obs_next.dim() - 1)), reset_obs,
+                obs_next)
+            done4 = done[:, None, None, None]
+            memory.masked_fill_(done4, 0.0)
+            k_cache = torch.where(done4, pe_k, k_cache)
+            v_cache = torch.where(done4, pe_v, v_cache)
+
+            out["obs"][:, t] = obs
+            out["actions"][:, t] = actions
+            out["log_probs"][:, t] = log_probs
+            out["values"][:, t] = value
+            out["rewards"][:, t] = reward
+            out["dones"][:, t] = done
+            out["episode_steps"][:, t] = e
+            out["tape"][:, t] = mem_item
+            for k in infos:
+                infos[k][:, t] = info[k]
+            obs = obs_next
+            e = torch.where(done, 0, e + 1)
+
+        final_state = RolloutState(env_state, obs, e, memory)
+        # The reference bootstraps with the LAST step's memory indices.
+        last_indices = self.index_table[out["episode_steps"][:, -1]]
+        last_value = self._last_value(final_state, last_indices)
+        advantages = calc_advantages(out["rewards"], out["values"],
+                                     out["dones"], last_value, cfg.gamma,
+                                     cfg.lamda)
+        batch = RolloutBatch(
+            obs=out["obs"], actions=out["actions"],
+            log_probs=out["log_probs"], values=out["values"],
+            advantages=advantages, episode_steps=out["episode_steps"],
+            dones=out["dones"], tape=out["tape"], snapshot=snapshot,
+            episode_infos=infos)
+        return final_state, batch
+
+    def _last_value(self, state: RolloutState, last_indices):
+        """Bootstrap V(s_T) with the reference's shifted window
+        ``[max(e - L, 0), max(e - L, 0) + L)`` and the given slot indices."""
+        L = self.config.transformer.memory_length
+        e = state.episode_step
+        W = e.shape[0]
+        rows = (e - L).clamp(min=0)[:, None] + torch.arange(
+            L, device=self.device)
+        window = state.memory[torch.arange(W, device=self.device)[:, None],
+                              rows]
+        mask = self.mask_table[e.clamp(0, L - 1)]
+        _, last_value, _ = self.model(state.obs, window, mask, last_indices)
+        return last_value

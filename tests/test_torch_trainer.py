@@ -1,0 +1,192 @@
+"""The etmppo_tpu_torch slice end to end on the CPU: config, trainer, CLI,
+and the package's independence from JAX and from etmppo_tpu."""
+import dataclasses
+import glob
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+import yaml
+
+from etmppo_tpu.config import load_config as jax_load_config
+from etmppo_tpu_torch import cli
+from etmppo_tpu_torch.config import (MINIGRID_FLAGSHIP, config_from_dict,
+                                     config_to_dict, load_config)
+from etmppo_tpu_torch.ops.window_attention import window_attention_fwd
+from etmppo_tpu_torch.training import trainer as trainer_lib
+from etmppo_tpu_torch.training.trainer import PPOTrainer
+
+torch.set_num_threads(1)
+
+PACKAGE = os.path.join(os.path.dirname(__file__), "..", "etmppo_tpu_torch")
+
+
+def _tiny(tmp_path, **overrides):
+    raw = dict(
+        environment={"type": "Minigrid", "name": "MiniGrid-MemoryS9-v0"},
+        updates=2, epochs=2, n_workers=2, worker_steps=16, n_mini_batch=2,
+        hidden_layer_size=32,
+        transformer={"num_blocks": 2, "embed_dim": 32, "num_heads": 4,
+                     "memory_length": 8, "positional_encoding": "relative",
+                     "layer_norm": "post"},
+        use_pallas_attention=True, summary_dir=str(tmp_path / "summaries"),
+        checkpoint_dir=str(tmp_path / "models"))
+    raw.update(overrides)
+    return raw
+
+
+def test_flagship_dict_is_the_minigrid_yaml_without_the_backward_kernel():
+    with open("etmppo_tpu/configs/minigrid.yaml") as f:
+        raw = yaml.safe_load(f)
+    assert raw["pallas_backward"] is True
+    raw["pallas_backward"] = False
+    assert MINIGRID_FLAGSHIP == raw
+    assert config_from_dict(MINIGRID_FLAGSHIP) == dataclasses.replace(
+        load_config("etmppo_tpu/configs/minigrid.yaml"), pallas_backward=False)
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob("etmppo_tpu/configs/*.yaml")))
+def test_every_yaml_loads_like_the_jax_package(path):
+    assert config_to_dict(load_config(path)) == dataclasses.asdict(
+        jax_load_config(path))
+
+
+def test_config_validation():
+    with pytest.raises(ValueError):
+        config_from_dict({"transformer": {"embed_dim": 30, "num_heads": 4}})
+    with pytest.raises(ValueError):
+        config_from_dict({"n_workers": 3, "worker_steps": 5, "n_mini_batch": 2})
+    cfg = config_from_dict(MINIGRID_FLAGSHIP)
+    assert cfg.batch_size == 8192 and cfg.mini_batch_size == 1024
+    assert cfg.learning_rate_schedule.value(0) == pytest.approx(3.5e-4)
+    assert cfg.learning_rate_schedule.value(251) == pytest.approx(1e-4)
+
+
+def test_trainer_takes_two_updates_on_cpu(tmp_path):
+    cfg = config_from_dict(_tiny(tmp_path))
+    launches = window_attention_fwd.launches
+    trainer = PPOTrainer(cfg, run_id="cpu", device="cpu")
+    try:
+        result = trainer.run_training(print_every=0)
+    finally:
+        trainer.close()
+    assert trainer.update == 2
+    assert all(math.isfinite(v) for v in result.values())
+    assert result["env_steps_per_second"] > 0
+    # the CPU path never reaches the CUDA wrapper
+    assert window_attention_fwd.launches == launches
+    with open(trainer.writer.csv_path) as f:
+        rows = f.read().splitlines()
+    assert len(rows) == 3 and "gradients/model" in rows[0]
+    assert str(tmp_path) in trainer.writer.csv_path
+
+
+def test_trainer_is_deterministic_given_the_seed(tmp_path):
+    def run():
+        trainer = PPOTrainer(config_from_dict(_tiny(tmp_path, updates=1)),
+                             device="cpu", enable_metrics=False)
+        trainer.run_training(print_every=0)
+        return trainer.model.state_dict()
+    a, b = run(), run()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("overrides,match", [
+    (dict(pallas_backward=True), "backward"),
+    (dict(checkpoint_interval=5), "checkpoint"),
+    (dict(num_devices=2), "num_devices"),
+    (dict(compute_dtype="bfloat16"), "float32"),
+    (dict(obs_uint8=True), "obs_uint8"),
+    (dict(environment={"type": "CartPole"}), "CartPole"),
+])
+def test_trainer_refuses_unported_options(tmp_path, overrides, match):
+    cfg = config_from_dict(_tiny(tmp_path, **overrides))
+    with pytest.raises(NotImplementedError, match=match):
+        PPOTrainer(cfg, device="cpu", enable_metrics=False)
+
+
+def test_trainer_raises_without_a_gpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PPOTrainer(config_from_dict(_tiny(tmp_path)), device="cuda",
+                   enable_metrics=False)
+
+
+@pytest.mark.parametrize("fmt", ["json", "yaml"])
+def test_cli_trains_on_cpu(tmp_path, capsys, fmt):
+    path = tmp_path / f"tiny.{fmt}"
+    with open(path, "w") as f:
+        (json.dump if fmt == "json" else yaml.safe_dump)(
+            _tiny(tmp_path, updates=5), f)
+    result = cli.train_main([f"--config={path}", "--run-id=cli", "--cpu",
+                             "--updates=1"])
+    out = capsys.readouterr().out
+    assert "env steps/s" in out and "pi_loss=" in out
+    assert result["env_steps_per_second"] > 0
+    assert os.path.isdir(tmp_path / "summaries" / "cli")
+
+
+def test_cli_without_cpu_flag_needs_a_gpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = tmp_path / "tiny.json"
+    path.write_text(json.dumps(_tiny(tmp_path)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.train_main([f"--config={path}"])
+
+
+def test_package_never_imports_jax_or_the_jax_package():
+    forbidden = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|yaml|etmppo_tpu)(\.|\s|$)")
+    sources = glob.glob(os.path.join(PACKAGE, "**", "*.py"), recursive=True)
+    sources.append(os.path.join(PACKAGE, "..", "chip_smoke.py"))
+    hits = []
+    for path in sources:
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                if forbidden.match(line) and not line.strip() == "import yaml":
+                    hits.append(f"{path}:{n}: {line.strip()}")
+    assert not hits
+    # the only yaml import is inside the YAML-reading function
+    with open(os.path.join(PACKAGE, "config.py")) as f:
+        assert re.findall(r"^(\s*)import yaml", f.read(), re.M) == ["    "]
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, etmppo_tpu_torch.cli, etmppo_tpu_torch.interop, "
+            "etmppo_tpu_torch.training.trainer; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'optax', 'yaml', 'etmppo_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_format_update_line():
+    line = trainer_lib.format_update(3, dict(
+        policy_loss=0.1, value_loss=0.2, entropy=1.0, loss=0.3,
+        value_mean=0.5, advantage_mean=0.0, success=0.25, reward_mean=0.4))
+    assert line.startswith("   3 reward=0.40") and "success=0.25" in line
+
+
+def test_metrics_match_the_jax_package(tmp_path):
+    from etmppo_tpu.training import metrics as jmetrics
+    from etmppo_tpu_torch.training import metrics
+    infos = [{"reward": 0.5 * i, "length": 10.0 + i, "success": float(i % 2)}
+             for i in range(7)]
+    result = metrics.process_episode_info(infos)
+    assert result == jmetrics.process_episode_info(infos)
+    assert metrics.process_episode_info([]) == {}
+    stats = dict(zip(("policy_loss", "value_loss", "loss", "entropy", "kl",
+                      "clip_fraction"), (0.1, 0.2, 0.3, 1.0, 0.01, 0.05)))
+    assert metrics.training_scalars(stats, result, 0.4, 0.0) == \
+        jmetrics.training_scalars(stats, result, 0.4, 0.0)
+    writer = metrics.MetricsWriter(str(tmp_path), "run")
+    writer.write(0, {"a": 1.0})
+    writer.write(1, {"a": 2.0})
+    writer.close()
+    with open(writer.csv_path) as f:
+        assert f.read().splitlines() == ["update,a", "0,1.0", "1,2.0"]
