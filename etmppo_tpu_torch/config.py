@@ -20,8 +20,9 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict
 
-# The MiniGrid-Memory S9 flagship (etmppo_tpu/configs/minigrid.yaml) as a dict,
-# with the backward kernel off: the CUDA backward is not ported yet.
+# The shipped configurations as dicts, exactly as their YAML files say, so
+# that a machine without PyYAML can build them:
+# the MiniGrid-Memory S9 flagship (etmppo_tpu/configs/minigrid.yaml) ...
 MINIGRID_FLAGSHIP: Dict[str, Any] = {
     "environment": {"type": "Minigrid", "name": "MiniGrid-MemoryS9-v0"},
     "gamma": 0.995,
@@ -53,7 +54,58 @@ MINIGRID_FLAGSHIP: Dict[str, Any] = {
     "seed": 0,
     "updates_per_launch": 4,
     "use_pallas_attention": True,
-    "pallas_backward": False,
+    "pallas_backward": True,
+}
+
+# ... and the MemoryGym Mystery Path Grid long-memory flagship
+# (etmppo_tpu/configs/mystery_path_grid.yaml).
+MYSTERY_PATH_GRID: Dict[str, Any] = {
+    "environment": {
+        "type": "MysteryPath-Grid",
+        "name": "MysteryPath-Grid-v0",
+        "reset_params": {
+            "start-seed": 0,
+            "num-seeds": 100000,
+            "cardinal_origin_choice": [0, 1, 2, 3],
+            "show_origin": False,
+            "show_goal": False,
+            "visual_feedback": True,
+            "reward_goal": 1.0,
+            "reward_fall_off": 0.0,
+            "reward_path_progress": 0.0,
+        },
+    },
+    "gamma": 0.995,
+    "lamda": 0.95,
+    "updates": 5000,
+    "epochs": 3,
+    "n_workers": 32,
+    "worker_steps": 512,
+    "n_mini_batch": 8,
+    "value_loss_coefficient": 0.5,
+    "hidden_layer_size": 256,
+    "max_grad_norm": 0.25,
+    "transformer": {
+        "num_blocks": 2,
+        "embed_dim": 256,
+        "num_heads": 4,
+        "memory_length": 96,
+        "positional_encoding": "",
+        "layer_norm": "pre",
+        "gtrxl": False,
+        "gtrxl_bias": 0.0,
+    },
+    "learning_rate_schedule": {"initial": 2.75e-4, "final": 1.0e-5,
+                               "power": 1.0, "max_decay_steps": 10000},
+    "beta_schedule": {"initial": 0.001, "final": 0.000001, "power": 1.0,
+                      "max_decay_steps": 10000},
+    "clip_range_schedule": {"initial": 0.1, "final": 0.1, "power": 1.0,
+                            "max_decay_steps": 10000},
+    "seed": 0,
+    "updates_per_launch": 4,
+    "checkpoint_interval": 100,
+    "use_pallas_attention": True,
+    "pallas_backward": True,
 }
 
 
@@ -131,9 +183,10 @@ class TrainConfig:
     compute_dtype: str = "float32"
     # Use the CUDA window-attention kernel in the PPO loss.
     use_pallas_attention: bool = False
-    # A CUDA backward kernel for the window attention (not ported yet: the
-    # trainer raises NotImplementedError when this is set).
+    # The CUDA backward kernel for the window attention (else the plain
+    # PyTorch VJP runs on the card).
     pallas_backward: bool = False
+    # Save a full training-state checkpoint every this many updates (0: never).
     checkpoint_interval: int = 0
     checkpoint_dir: str = "./models"
     summary_dir: str = "./summaries"

@@ -1,6 +1,6 @@
 """Environment factory (counterpart of ``etmppo_tpu/envs/factory.py``).
 
-Only MiniGrid-Memory is ported so far; every other type raises.
+MiniGrid-Memory and Mystery Path Grid are ported; every other type raises.
 """
 from __future__ import annotations
 
@@ -12,5 +12,8 @@ def create_env(config: EnvConfig, n_workers: int, device) -> TorchEnv:
     if config.type == "Minigrid":
         from .minigrid_memory import MinigridMemoryEnv
         return MinigridMemoryEnv(config.name, n_workers, device)
+    if config.type == "MysteryPath-Grid":
+        from .mystery_path import MysteryPathGridEnv
+        return MysteryPathGridEnv(config.reset_params, n_workers, device)
     raise NotImplementedError(
         f"environment type {config.type!r} is not ported to PyTorch yet")

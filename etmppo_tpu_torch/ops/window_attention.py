@@ -6,14 +6,18 @@ window is ``timeline[w_idx[b], start[b] : start[b] + n_valid[b]]`` followed by
 ``softmax(where(mask, q . K^T, -1e20) / sqrt(D)) . V``.
 
 * ``window_attention_plain`` is the plain PyTorch formulation (the semantics of
-  ``xla_window_attention``). The CPU path and the backward use it.
-* ``WindowAttentionForward`` wraps the hand-written CUDA forward kernel
-  (``csrc/window_attention_fwd.cu``). nvcc builds it at first use into a
-  shared library with a plain C interface, loaded with ctypes; it keeps a count
-  of its launches.
-* ``window_attention`` is the autograd op: its forward launches the kernel for
-  CUDA tensors (the plain version for CPU tensors), its backward re-derives
-  the gradients through the plain version.
+  ``xla_window_attention``) and ``window_attention_bwd_plain`` its VJP. CPU
+  tensors take them.
+* ``WindowAttentionForward`` and ``WindowAttentionBackward`` wrap the
+  hand-written CUDA kernels (``csrc/window_attention_fwd.cu`` and
+  ``csrc/window_attention_bwd.cu``). nvcc builds each at first use into a
+  shared library with a plain C interface, loaded with ctypes; each keeps a
+  count of its launches.
+* ``window_attention`` is the autograd op. Its forward launches the forward
+  kernel for CUDA tensors. Its backward launches the backward kernel when the
+  caller passes one (``pallas_backward: true``), else it re-derives the
+  gradients through the plain version (the JAX package's
+  ``BACKWARD_MODE = "xla"``). The choice is the caller's, per call.
 """
 from __future__ import annotations
 
@@ -25,13 +29,15 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Optional, Sequence
 
 import torch
 
 MASK_FILL = -1e20
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
-KERNEL_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_fwd.cu"
+FWD_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_fwd.cu"
+BWD_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_bwd.cu"
 BUILD_DIR = _PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
@@ -60,12 +66,33 @@ def window_attention_plain(q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
     return out.reshape(B, D)
 
 
-class WindowAttentionForward:
-    """The CUDA forward kernel: built on first use, launched on the current
-    stream, counted in ``launches``."""
+def window_attention_bwd_plain(q, timeline_k, timeline_v, pe_k, pe_v, w_idx,
+                              start, n_valid, s_lo, mask, g, num_heads: int,
+                              needs_grad: Sequence[bool] = (True,) * 5):
+    """VJP of ``window_attention_plain`` for the output gradient g (B, D).
+    Returns (dq, dtk, dtv, dpk, dpv), shaped like (q, timeline_k, timeline_v,
+    pe_k, pe_v); an entry whose ``needs_grad`` is False is None."""
+    diff = [t.detach().requires_grad_(bool(need)) for t, need in
+            zip((q, timeline_k, timeline_v, pe_k, pe_v), needs_grad)]
+    wanted = [t for t in diff if t.requires_grad]
+    grads = iter(())
+    if wanted:
+        with torch.enable_grad():
+            out = window_attention_plain(*diff, w_idx, start, n_valid, s_lo,
+                                         mask, num_heads)
+            grads = iter(torch.autograd.grad(out, wanted, g))
+    return tuple(next(grads) if t.requires_grad else None for t in diff)
 
-    def __init__(self, source: Path = KERNEL_SOURCE,
-                 build_dir: Path = BUILD_DIR):
+
+class _CudaKernel:
+    """A CUDA source built by nvcc on first use into a shared library with a
+    plain C interface, loaded with ctypes. Subclasses launch it on the current
+    stream and count each launch in ``launches``."""
+
+    symbol = ""
+    n_pointers = 0
+
+    def __init__(self, source: Path, build_dir: Path = BUILD_DIR):
         self.source = Path(source)
         self.build_dir = Path(build_dir)
         self.launches = 0
@@ -75,7 +102,7 @@ class WindowAttentionForward:
         digest = hashlib.sha256(
             self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
-        return self.build_dir / f"window_attention_fwd_{digest}.so"
+        return self.build_dir / f"{self.source.stem}_{digest}.so"
 
     def build(self) -> Path:
         """Compiles the source with nvcc unless a library built from the same
@@ -85,8 +112,8 @@ class WindowAttentionForward:
             return out
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the CUDA window-attention "
-                               "kernel cannot be built")
+            raise RuntimeError(f"nvcc not found: {self.source.name} cannot "
+                               "be built")
         self.build_dir.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
         os.close(fd)
@@ -96,44 +123,86 @@ class WindowAttentionForward:
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+                    f"nvcc failed on {self.source.name} ({proc.returncode}):"
+                    f"\n{proc.stdout}{proc.stderr}")
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
         return out
 
-    def _library(self):
+    def _function(self):
         if self._lib is None:
             lib = ctypes.CDLL(str(self.build()))
-            fn = lib.window_attention_fwd
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
-                ctypes.c_void_p]
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = [ctypes.c_void_p] * self.n_pointers + [
+                ctypes.c_int] * 7 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._lib = lib
-        return self._lib
+        return getattr(self._lib, self.symbol)
+
+    def _launch(self, pointers, ints, device) -> None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = self._function()(*pointers, *ints, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.symbol} launch failed: CUDA error {err}")
+        self.launches += 1
+
+
+class WindowAttentionForward(_CudaKernel):
+    """The CUDA forward kernel: out (B, D)."""
+
+    symbol = "window_attention_fwd"
+    n_pointers = 11
+
+    def __init__(self, source: Path = FWD_SOURCE,
+                 build_dir: Path = BUILD_DIR):
+        super().__init__(source, build_dir)
 
     def __call__(self, q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
                  n_valid, s_lo, mask, num_heads: int) -> torch.Tensor:
-        B, D = _check_inputs(q, timeline_k, timeline_v, pe_k, pe_v, w_idx,
-                             start, n_valid, s_lo, mask, num_heads)
+        inputs = (q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
+                  n_valid, s_lo, mask)
+        B, D = _check_inputs(*inputs, num_heads)
         W, S, _ = timeline_k.shape
-        P = pe_k.shape[0]
-        L = mask.shape[1]
-        lib = self._library()
         out = torch.empty_like(q)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.window_attention_fwd(
-            q.data_ptr(), timeline_k.data_ptr(), timeline_v.data_ptr(),
-            pe_k.data_ptr(), pe_v.data_ptr(), w_idx.data_ptr(),
-            start.data_ptr(), n_valid.data_ptr(), s_lo.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), B, W, S, P, L, D, num_heads,
-            stream)
-        if err != 0:
-            raise RuntimeError(
-                f"window_attention_fwd launch failed: CUDA error {err}")
-        self.launches += 1
+        self._launch([t.data_ptr() for t in inputs + (out,)],
+                     (B, W, S, pe_k.shape[0], mask.shape[1], D, num_heads),
+                     q.device)
         return out
+
+
+class WindowAttentionBackward(_CudaKernel):
+    """The CUDA backward kernel: (dq, dtk, dtv, dpk, dpv) for the output
+    gradient g. The gradient tables are zeroed on the current stream, then
+    the kernel adds into them with fp32 atomics, so their last bits vary from
+    run to run."""
+
+    symbol = "window_attention_bwd"
+    n_pointers = 16
+
+    def __init__(self, source: Path = BWD_SOURCE,
+                 build_dir: Path = BUILD_DIR):
+        super().__init__(source, build_dir)
+
+    def __call__(self, q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
+                 n_valid, s_lo, mask, g, num_heads: int):
+        inputs = (q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
+                  n_valid, s_lo, mask)
+        B, D = _check_inputs(*inputs, num_heads)
+        if (g.device != q.device or g.dtype != torch.float32
+                or g.shape != q.shape or not g.is_contiguous()):
+            raise ValueError("g must be a contiguous float32 tensor shaped "
+                             "and placed like q")
+        W, S, _ = timeline_k.shape
+        dq = torch.empty_like(q)
+        grads = [torch.zeros_like(t) for t in
+                 (timeline_k, timeline_v, pe_k, pe_v)]
+        self._launch([t.data_ptr() for t in inputs + (g, dq, *grads)],
+                     (B, W, S, pe_k.shape[0], mask.shape[1], D, num_heads),
+                     q.device)
+        return (dq, *grads)
 
 
 def _check_inputs(q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
@@ -174,15 +243,17 @@ def _check_inputs(q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
 
 
 window_attention_fwd = WindowAttentionForward()
+window_attention_bwd = WindowAttentionBackward()
 
 
 class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
-                n_valid, s_lo, mask, num_heads, kernel):
+                n_valid, s_lo, mask, num_heads, kernel, backward_kernel):
         ctx.save_for_backward(q, timeline_k, timeline_v, pe_k, pe_v, w_idx,
                               start, n_valid, s_lo, mask)
         ctx.num_heads = num_heads
+        ctx.backward_kernel = backward_kernel
         args = (q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start, n_valid,
                 s_lo, mask, num_heads)
         if q.device.type == "cpu":
@@ -191,21 +262,28 @@ class _WindowAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, tk, tv, pk, pv, w_idx, start, n_valid, s_lo, mask = ctx.saved_tensors
-        diff = [t.detach().requires_grad_(True) for t in (q, tk, tv, pk, pv)]
-        with torch.enable_grad():
-            out = window_attention_plain(*diff, w_idx, start, n_valid, s_lo,
-                                         mask, ctx.num_heads)
-            grads = torch.autograd.grad(out, diff, grad_out)
-        return (*grads, None, None, None, None, None, None, None)
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        if not any(needs):
+            grads = (None,) * 5
+        elif saved[0].device.type == "cpu" or ctx.backward_kernel is None:
+            grads = window_attention_bwd_plain(*saved, grad_out,
+                                               ctx.num_heads, needs)
+        else:
+            grads = ctx.backward_kernel(*saved, grad_out.contiguous(),
+                                        ctx.num_heads)
+            grads = tuple(t if need else None for t, need in zip(grads, needs))
+        return (*grads, None, None, None, None, None, None, None, None)
 
 
 def window_attention(q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
                      n_valid, s_lo, mask, num_heads: int,
-                     kernel: WindowAttentionForward = window_attention_fwd):
+                     kernel: WindowAttentionForward = window_attention_fwd,
+                     backward_kernel: Optional[WindowAttentionBackward] = None):
     """Differentiable window attention (counterpart of
-    ``fused_window_attention`` with its XLA-derived backward). CUDA inputs go
-    through ``kernel``; CPU inputs through ``window_attention_plain``."""
+    ``fused_window_attention``). CUDA inputs go forward through ``kernel``
+    and backward through ``backward_kernel``, or through the plain VJP when
+    it is None; CPU inputs go through the plain versions both ways."""
     return _WindowAttention.apply(q, timeline_k, timeline_v, pe_k, pe_v,
                                   w_idx, start, n_valid, s_lo, mask,
-                                  num_heads, kernel)
+                                  num_heads, kernel, backward_kernel)

@@ -12,7 +12,8 @@ gradients.
 Memory windows are never gathered: the update projects each worker's memory
 timeline once per minibatch, and each block's attention reads its window
 straight from the projected timeline (``ops/window_attention.py``, the CUDA
-kernel on the card).
+forward kernel on the card). With ``pallas_backward`` the attention backward
+is the CUDA backward kernel too; without it, the plain PyTorch VJP.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from ..ops import distributions
 from ..ops.memory_index import (build_memory_indices, build_memory_mask,
                                 build_timeline, build_timeline_slots,
                                 compute_timeline_sources)
-from ..ops.window_attention import window_attention, window_attention_fwd
+from ..ops.window_attention import (window_attention, window_attention_bwd,
+                                    window_attention_fwd)
 from .rollout import RolloutBatch
 
 STAT_NAMES = ("policy_loss", "value_loss", "loss", "entropy", "kl",
@@ -107,17 +109,16 @@ class PPOUpdate:
             raise NotImplementedError(
                 "only the window-attention loss is ported "
                 "(use_pallas_attention: true)")
-        if config.pallas_backward:
-            raise NotImplementedError(
-                "the CUDA backward kernel is not ported yet "
-                "(pallas_backward: true)")
         self.config = config
         self.model = model
         self.max_ep = max_episode_steps
         self.generator = generator
-        # The window-attention forward for CUDA tensors (CPU tensors take the
-        # plain version inside the op).
+        # The window-attention kernels for CUDA tensors (CPU tensors take the
+        # plain versions inside the op); no backward kernel means the plain
+        # VJP on the card.
         self.kernel = window_attention_fwd
+        self.backward_kernel = (window_attention_bwd if config.pallas_backward
+                                else None)
         device = next(model.parameters()).device
         L = config.transformer.memory_length
         self.mask_table = torch.as_tensor(build_memory_mask(L), device=device)
@@ -139,7 +140,7 @@ class PPOUpdate:
             return lambda q: window_attention(
                 q, tk, tv, pk, pv, mb["w_idx"], mb["tl_start"],
                 mb["tl_n_valid"], mb["tl_s_lo"], mb["memory_mask"],
-                trx.num_heads, self.kernel)
+                trx.num_heads, self.kernel, self.backward_kernel)
 
         logits, value, _ = self.model.forward_with_ops(
             mb["obs"], [make_op(i) for i in range(trx.num_blocks)])

@@ -2,17 +2,22 @@
 
 ``PPOTrainer(config, run_id, device)`` builds the env, the model, the rollout
 and the update on ``device``; ``train_one_update`` runs one rollout and one
-PPO update; ``run_training`` runs ``config.updates`` of them.
+PPO update; ``run_training`` runs ``config.updates`` of them, saves a full
+checkpoint every ``checkpoint_interval`` updates and the final model as
+``<checkpoint_dir>/<run_id>.nn``; ``resume_from_checkpoint`` restores the
+latest checkpoint of the run.
 
 What the JAX package runs as fused device programs (``training/fused.py``)
 has no counterpart: PyTorch runs eagerly. The kernel choice is this
-trainer's (``config.use_pallas_attention``), not a module global.
+trainer's (``config.use_pallas_attention``, ``config.pallas_backward``), not
+a module global.
 """
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -21,8 +26,9 @@ from ..config import TrainConfig
 from ..envs.factory import create_env
 from ..models.actor_critic import ActorCriticModel
 from . import metrics as metrics_lib
+from .checkpoint import Checkpointer, save_model
 from .ppo import STAT_NAMES, PPOUpdate
-from .rollout import RolloutFn
+from .rollout import RolloutFn, RolloutState
 
 
 def resolve_device(device) -> torch.device:
@@ -35,9 +41,6 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_supported(config: TrainConfig) -> None:
-    if config.checkpoint_interval > 0:
-        raise NotImplementedError("checkpointing is not ported yet "
-                                  "(checkpoint_interval must be 0)")
     if config.num_devices != 1:
         raise NotImplementedError("only num_devices: 1 is ported")
     if config.compute_dtype != "float32":
@@ -71,6 +74,8 @@ class PPOTrainer:
         self.update = 0
         self.writer = (metrics_lib.MetricsWriter(config.summary_dir, run_id)
                        if enable_metrics else None)
+        self.checkpointer = (Checkpointer(config.checkpoint_dir, run_id)
+                             if config.checkpoint_interval > 0 else None)
         self.episode_infos: deque = deque(maxlen=100)
         self.env_steps_per_update = config.n_workers * config.worker_steps
 
@@ -116,19 +121,79 @@ class PPOTrainer:
         return result
 
     def run_training(self, print_every: int = 1) -> Dict[str, float]:
-        start_update = self.update
+        cfg = self.config
+        start_update = self.update  # > 0 after a resume
         start = time.perf_counter()
+        first_update_end = None
         result: Dict[str, float] = {}
-        while self.update < self.config.updates:
+        while self.update < cfg.updates:
             result = self.train_one_update()
+            if first_update_end is None:
+                self._synchronize()
+                first_update_end = time.perf_counter()
             if print_every and (self.update - 1) % print_every == 0:
                 print(format_update(self.update - 1, result))
+            if (self.checkpointer is not None
+                    and self.update % cfg.checkpoint_interval == 0):
+                self._save_checkpoint()
+        self._synchronize()
+        elapsed = time.perf_counter() - start
+        updates = self.update - start_update
+        result["env_steps_per_second"] = (
+            updates * self.env_steps_per_update / max(elapsed, 1e-9))
+        if updates > 1:
+            # Without the first update, which carries the warm-up.
+            result["env_steps_per_second_steady"] = (
+                (updates - 1) * self.env_steps_per_update
+                / max(time.perf_counter() - first_update_end, 1e-9))
+        self._save_model()
+        return result
+
+    def _synchronize(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        elapsed = time.perf_counter() - start
-        steps = (self.update - start_update) * self.env_steps_per_update
-        result["env_steps_per_second"] = steps / max(elapsed, 1e-9)
-        return result
+
+    # --- checkpoints ---------------------------------------------------
+
+    def _training_state(self) -> Dict[str, Any]:
+        """Everything a resumed run needs to continue bit for bit."""
+        rs = self.rollout_state
+        return dict(
+            model=self.model.state_dict(),
+            optimizer=self.update_fn.optimizer.state_dict(),
+            rollout_state=dict(env_state=rs.env_state._asdict(), obs=rs.obs,
+                               episode_step=rs.episode_step,
+                               memory=rs.memory),
+            rollout_generator=self.rollout_fn.generator.get_state(),
+            update_generator=self.update_fn.generator.get_state(),
+            update=self.update)
+
+    def _save_checkpoint(self) -> None:
+        self.checkpointer.save(self.update, self._training_state())
+
+    def resume_from_checkpoint(self) -> bool:
+        """Restores the latest checkpoint of this run if there is one."""
+        if self.checkpointer is None or self.checkpointer.latest_update() is None:
+            return False
+        state = self.checkpointer.restore()
+        self.model.load_state_dict(state["model"])
+        self.update_fn.optimizer.load_state_dict(state["optimizer"])
+        rs = state["rollout_state"]
+        to_dev = lambda t: t.to(self.device)
+        env_state = type(self.rollout_state.env_state)(
+            **{k: to_dev(v) for k, v in rs["env_state"].items()})
+        self.rollout_state = RolloutState(
+            env_state, to_dev(rs["obs"]), to_dev(rs["episode_step"]),
+            to_dev(rs["memory"]))
+        self.rollout_fn.generator.set_state(state["rollout_generator"])
+        self.update_fn.generator.set_state(state["update_generator"])
+        self.update = int(state["update"])
+        return True
+
+    def _save_model(self) -> None:
+        path = os.path.join(self.config.checkpoint_dir, self.run_id + ".nn")
+        save_model(path, self.model, self.config)
+        print("Model saved to " + path)
 
     def close(self) -> None:
         if self.writer is not None:

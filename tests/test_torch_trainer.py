@@ -15,8 +15,9 @@ import yaml
 
 from etmppo_tpu.config import load_config as jax_load_config
 from etmppo_tpu_torch import cli
-from etmppo_tpu_torch.config import (MINIGRID_FLAGSHIP, config_from_dict,
-                                     config_to_dict, load_config)
+from etmppo_tpu_torch.config import (MINIGRID_FLAGSHIP, MYSTERY_PATH_GRID,
+                                     config_from_dict, config_to_dict,
+                                     load_config)
 from etmppo_tpu_torch.ops.window_attention import window_attention_fwd
 from etmppo_tpu_torch.training import trainer as trainer_lib
 from etmppo_tpu_torch.training.trainer import PPOTrainer
@@ -40,14 +41,15 @@ def _tiny(tmp_path, **overrides):
     return raw
 
 
-def test_flagship_dict_is_the_minigrid_yaml_without_the_backward_kernel():
-    with open("etmppo_tpu/configs/minigrid.yaml") as f:
-        raw = yaml.safe_load(f)
-    assert raw["pallas_backward"] is True
-    raw["pallas_backward"] = False
-    assert MINIGRID_FLAGSHIP == raw
-    assert config_from_dict(MINIGRID_FLAGSHIP) == dataclasses.replace(
-        load_config("etmppo_tpu/configs/minigrid.yaml"), pallas_backward=False)
+@pytest.mark.parametrize("raw,path", [
+    (MINIGRID_FLAGSHIP, "etmppo_tpu/configs/minigrid.yaml"),
+    (MYSTERY_PATH_GRID, "etmppo_tpu/configs/mystery_path_grid.yaml"),
+])
+def test_flagship_dicts_are_exactly_their_yaml(raw, path):
+    with open(path) as f:
+        assert raw == yaml.safe_load(f)
+    assert config_from_dict(raw) == load_config(path)
+    assert config_from_dict(raw).pallas_backward
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob("etmppo_tpu/configs/*.yaml")))
@@ -97,8 +99,6 @@ def test_trainer_is_deterministic_given_the_seed(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(pallas_backward=True), "backward"),
-    (dict(checkpoint_interval=5), "checkpoint"),
     (dict(num_devices=2), "num_devices"),
     (dict(compute_dtype="bfloat16"), "float32"),
     (dict(obs_uint8=True), "obs_uint8"),
@@ -141,7 +141,8 @@ def test_cli_without_cpu_flag_needs_a_gpu(tmp_path, monkeypatch):
 
 def test_package_never_imports_jax_or_the_jax_package():
     forbidden = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|yaml|etmppo_tpu)(\.|\s|$)")
+        r"^\s*(import|from)\s+(jax|flax|msgpack|optax|yaml|etmppo_tpu)"
+        r"(\.|\s|$)")
     sources = glob.glob(os.path.join(PACKAGE, "**", "*.py"), recursive=True)
     sources.append(os.path.join(PACKAGE, "..", "chip_smoke.py"))
     hits = []
@@ -158,9 +159,11 @@ def test_package_never_imports_jax_or_the_jax_package():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, etmppo_tpu_torch.cli, etmppo_tpu_torch.interop, "
-            "etmppo_tpu_torch.training.trainer; "
+            "etmppo_tpu_torch.training.trainer, "
+            "etmppo_tpu_torch.training.checkpoint, "
+            "etmppo_tpu_torch.envs.mystery_path; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'yaml', 'etmppo_tpu')]; "
+            "('jax', 'flax', 'msgpack', 'optax', 'yaml', 'etmppo_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 

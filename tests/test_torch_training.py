@@ -311,7 +311,6 @@ def test_update_draws_its_own_permutations():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(pallas_backward=True), "backward"),
     (dict(use_pallas_attention=False), "window-attention"),
 ])
 def test_update_refuses_unported_paths(overrides, match):
