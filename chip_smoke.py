@@ -7,17 +7,25 @@ Phases, each printing one line with its seconds:
 
 1. device:      requires a CUDA device; prints the card's name and power limit
                 (nvidia-smi) and turns TF32 off for matmuls and convolutions.
-2. build:       compiles the window-attention forward and backward kernels
-                from etmppo_tpu_torch/csrc/, one nvcc process each, started
-                together (a library built from the same source is reused).
-3. kernel:      holds each kernel against its plain PyTorch version at the
-                MiniGrid flagship shape (B=1024, W=16, S=672, P=96, L=64,
-                D=384, H=4) and the Mystery Path Grid shape (B=2048, W=32,
-                S=736, P=128, L=96, D=256, H=4), with windows from the port's
-                own index math, and on a small case with all-masked rows and
-                n_valid in {1, L}; times kernel, plain version, a library
-                yardstick (gather + scaled_dot_product_attention, and for the
-                backward autograd through that graph) and the bound.
+2. build:       compiles the four window-attention kernels from
+                etmppo_tpu_torch/csrc/ (the per-sample forward and backward,
+                the grouped forward and backward), one nvcc process each,
+                started together (a library built from the same source is
+                reused).
+3. kernel:      holds each kernel against its plain PyTorch version, the
+                grouped forward against the per-sample one and the grouped
+                backward against the per-sample one, at the MiniGrid flagship
+                shape (B=1024, W=16, S=672, P=96, L=64, D=384, H=4), the
+                Mystery Path Grid shape (B=2048, W=32, S=736, P=128, L=96,
+                D=256, H=4) and the Mortar Mayhem Grid shape (B=2048, W=32,
+                S=750, P=120, L=118, D=384, H=4), with windows from the
+                port's own index math, and on two small cases: all-masked
+                rows, n_valid in {1, L} and a worker with no samples; a
+                minibatch all of one worker. Two calls of the grouped
+                backward must give the same bits. Times kernel, plain
+                version, a library yardstick (gather +
+                scaled_dot_product_attention, and for the backward autograd
+                through that graph) and the bound.
 4. trainer:     two PPO updates of the MiniGrid-Memory flagship exactly as its
                 YAML says (pallas_backward: true) at full width (16 workers x
                 512 steps, TrXL 3 x 384, 5 epochs x 8 minibatches); each kernel
@@ -36,12 +44,29 @@ Phases, each printing one line with its seconds:
                 finite update; the saved .nn loads back to the same weights.
                 Then one more rollout and PPO update are timed apart, the
                 update with the plain and the kernel backward in turns.
+6. mortarmayhem: two PPO updates of the Mortar Mayhem Grid flagship exactly
+                as its YAML says (32 workers x 512 steps, TrXL 3 x 384,
+                memory 118, 3 epochs x 8 minibatches) with the grouped
+                kernels (PPOTrainer(..., grouped=True)); each grouped kernel
+                must launch exactly 72 times per update (3 blocks x 24
+                minibatches), the per-sample ones never, every stat must be
+                finite, and the saved .nn must load back to the same weights.
+                Prints the kernel shape the trainer gives. Then one more
+                rollout, and the PPO update on its batch in turns with the
+                plain backward, the per-sample pair and the grouped pair
+                (mortarmayhem-split); and, from one state and batch, two
+                updates with each pair (determinism): the largest parameter
+                difference between the two, reported, not gated (cuDNN and
+                the timeline-gather backward may still differ in the last
+                bits), then again with PyTorch's deterministic algorithms
+                and cuDNN's deterministic mode on.
 
 Then it prints the kernel table as one JSON line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result line.
 """
 from __future__ import annotations
 
+import copy
 import csv
 import dataclasses
 import json
@@ -58,15 +83,20 @@ import torch
 REPLACES = {
     "window_attention_fwd": "etmppo_tpu/ops/pallas_window_attention.py:151",
     "window_attention_bwd": "etmppo_tpu/ops/pallas_window_attention.py:250",
+    "window_attention_fwd_grouped":
+        "etmppo_tpu/ops/pallas_window_attention.py:449",
+    "window_attention_bwd_grouped":
+        "etmppo_tpu/ops/pallas_window_attention.py:503",
 }
 # Forward: fp32 outputs of magnitude ~1, summed in another order than the
 # plain version: agreement to 1e-4 absolute leaves two orders of margin.
 FWD_ATOL = 1e-4
 # Backward: each gradient is compared relative to its own largest entry. The
-# kernel adds into the timeline and PE tables with fp32 atomics, in an order
-# that changes from run to run, and sums dq in another order than the plain
-# VJP: 1e-5 of the largest entry leaves an order of margin over fp32 rounding
-# of the few hundred terms that meet in one entry.
+# per-sample kernel adds into the timeline and PE tables with fp32 atomics, in
+# an order that changes from run to run; the grouped kernel sums in the
+# sorted order; both sum dq in another order than the plain VJP: 1e-5 of the
+# largest entry leaves an order of margin over fp32 rounding of the few
+# hundred terms that meet in one entry.
 BWD_RTOL = 1e-5
 # Loss and gradients of one minibatch, kernels vs plain versions: the
 # difference enters through the attention outputs and their gradients only
@@ -78,9 +108,18 @@ H100_FP32_FLOPS = 67e12        # fp32 outside the tensor cores
 UPDATES = 2
 FLAGSHIP_LAUNCHES = 120        # per update: 3 blocks x 5 epochs x 8 minibatches
 MYSTERY_LAUNCHES = 48          # per update: 2 blocks x 3 epochs x 8 minibatches
-# (W, T, max_episode_steps, L, D, B) of the two configurations' minibatches.
+MORTAR_LAUNCHES = 72           # per update: 3 blocks x 3 epochs x 8 minibatches
+# (W, T, max_episode_steps, L, D, B) of the three configurations' minibatches.
 SHAPES = {"flagship": (16, 512, 96, 64, 384, 1024),
-          "mysterypath": (32, 512, 128, 96, 256, 2048)}
+          "mysterypath": (32, 512, 128, 96, 256, 2048),
+          "mortarmayhem": (32, 512, 120, 118, 384, 2048)}
+# The kernels, and the configuration whose path launches each.
+NAMES = ("window_attention_fwd", "window_attention_bwd",
+         "window_attention_fwd_grouped", "window_attention_bwd_grouped")
+MAIN_SHAPE = {"window_attention_fwd": "flagship",
+              "window_attention_bwd": "flagship",
+              "window_attention_fwd_grouped": "mortarmayhem",
+              "window_attention_bwd_grouped": "mortarmayhem"}
 
 
 def phase(name: str, start: float, detail: str = "") -> None:
@@ -137,12 +176,15 @@ def window_inputs(gen: torch.Generator, device, shape: str):
     return args, 4
 
 
-def edge_inputs(gen: torch.Generator, device):
-    """Small case: all-masked rows, n_valid = 1 and n_valid = L."""
+def edge_inputs(gen: torch.Generator, device, one_worker: bool = False):
+    """Small cases. Mixed: all-masked rows, n_valid = 1 and n_valid = L, and a
+    worker (the last) with no samples. One worker: every sample of worker 1."""
     B, W, S, P, L, D = 64, 4, 80, 24, 16, 384
     floats = [torch.randn(shape, generator=gen) for shape in
               ((B, D), (W, S, D), (W, S, D), (P, D), (P, D))]
-    w_idx = torch.randint(0, W, (B,), generator=gen, dtype=torch.int32)
+    w_idx = torch.randint(0, W - 1, (B,), generator=gen, dtype=torch.int32)
+    if one_worker:
+        w_idx[:] = 1
     start = torch.randint(0, S - L + 1, (B,), generator=gen, dtype=torch.int32)
     n_valid = torch.randint(1, L + 1, (B,), generator=gen, dtype=torch.int32)
     s_lo = torch.randint(0, P - L + 1, (B,), generator=gen, dtype=torch.int32)
@@ -249,28 +291,63 @@ def check_backward(kernel, plain, args, g, num_heads: int, label: str):
     return worst, share
 
 
-def measure_shape(fwd, bwd, fwd_plain, bwd_plain, gen, device, shape):
-    """Checks and times both kernels at one configuration's shape."""
+def check_repeatable(kernel, args, g, num_heads: int, label: str) -> None:
+    """Two calls on one input must give the same bits in all five
+    gradients."""
+    first = kernel(*args, g, num_heads)
+    second = kernel(*args, g, num_heads)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dtk", "dtv", "dpk", "dpv"), first, second):
+        if not torch.equal(x, y):
+            raise RuntimeError(f"backward, {label}: two calls of "
+                               f"{kernel.symbol} differ in {name}")
+
+
+def check_all(k, args, g, num_heads: int, label: str) -> dict:
+    """Every kernel against its plain version; the grouped forward against
+    the per-sample forward, the grouped backward against the per-sample
+    backward, and the grouped backward against itself. Returns the largest
+    error of each kernel, and each backward's largest share of its
+    tolerance."""
+    fwd, bwd, fwd_g, bwd_g = (k[n] for n in NAMES)
+    errs, shares = {}, {}
+    errs[fwd.symbol] = check_forward(fwd, fwd.plain, args, num_heads, label)
+    errs[fwd_g.symbol] = max(
+        check_forward(fwd_g, fwd_g.plain, args, num_heads, label),
+        check_forward(fwd_g, fwd, args, num_heads,
+                      label + ", grouped vs per-sample"))
+    errs[bwd.symbol], shares[bwd.symbol] = check_backward(
+        bwd, bwd.plain, args, g, num_heads, label)
+    checks = [check_backward(bwd_g, bwd_g.plain, args, g, num_heads, label),
+              check_backward(bwd_g, bwd.plain, args, g, num_heads,
+                             label + ", grouped vs plain VJP"),
+              check_backward(bwd_g, bwd, args, g, num_heads,
+                             label + ", grouped vs per-sample")]
+    errs[bwd_g.symbol] = max(c[0] for c in checks)
+    shares[bwd_g.symbol] = max(c[1] for c in checks)
+    check_repeatable(bwd_g, args, g, num_heads, label)
+    return {name: dict(max_abs_err=errs[name],
+                       **({"tol_share": shares[name]} if name in shares
+                          else {})) for name in errs}
+
+
+def measure_shape(k, gen, device, shape):
+    """Checks and times the four kernels at one configuration's shape."""
     args, heads = window_inputs(gen, device, shape)
     g = torch.randn(args[0].shape, generator=gen).to(device)
-    fwd_err = check_forward(fwd, fwd_plain, args, heads, shape)
-    bwd_err, bwd_share = check_backward(bwd, bwd_plain, args, g, heads, shape)
-    library = sdpa_yardstick(args, heads)
-    library_bwd = sdpa_backward_yardstick(args, g, heads)
-    out = {
-        "window_attention_fwd": dict(
-            max_abs_err=fwd_err,
-            ms=cuda_ms(lambda: fwd(*args, heads)),
-            plain_ms=cuda_ms(lambda: fwd_plain(*args, heads)),
-            library_ms=cuda_ms(library)),
-        "window_attention_bwd": dict(
-            max_abs_err=bwd_err, tol_share=bwd_share,
-            ms=cuda_ms(lambda: bwd(*args, g, heads)),
-            plain_ms=cuda_ms(lambda: bwd_plain(*args, g, heads)),
-            library_ms=cuda_ms(library_bwd))}
-    for name, backward in (("window_attention_fwd", False),
-                           ("window_attention_bwd", True)):
-        out[name]["bound_ms"], out[name]["bound_by"] = bound_ms(args, backward)
+    out = check_all(k, args, g, heads, shape)
+    library = cuda_ms(sdpa_yardstick(args, heads))
+    library_bwd = cuda_ms(sdpa_backward_yardstick(args, g, heads))
+    bounds = {backward: bound_ms(args, backward) for backward in (False, True)}
+    for name in NAMES:
+        kernel = k[name]
+        backward = "bwd" in name
+        extra = (g,) if backward else ()
+        m = out[name]
+        m["ms"] = cuda_ms(lambda: kernel(*args, *extra, heads))
+        m["plain_ms"] = cuda_ms(lambda: kernel.plain(*args, *extra, heads))
+        m["library_ms"] = library_bwd if backward else library
+        m["bound_ms"], m["bound_by"] = bounds[backward]
     return out
 
 
@@ -281,9 +358,9 @@ def describe(name: str, m: dict) -> str:
             f"{m['bound_ms']:.4f} ({m['bound_by']})")
 
 
-def minibatch_agreement(trainer, batch, fwd_plain) -> str:
-    """Loss and gradients of one minibatch of ``batch`` through both kernels
-    and through both plain versions."""
+def minibatch_agreement(trainer, batch) -> str:
+    """Loss and gradients of one minibatch of ``batch`` through the trainer's
+    kernels and through the plain versions."""
     upd = trainer.update_fn
     timeline, slots, fields = upd.prepare(batch)
     gen = torch.Generator(trainer.device).manual_seed(7)
@@ -292,7 +369,7 @@ def minibatch_agreement(trainer, batch, fwd_plain) -> str:
     mb = upd.minibatch(fields, idx)
     results = []
     kernels = (upd.kernel, upd.backward_kernel)
-    for fwd, bwd in (kernels, (fwd_plain, None)):
+    for fwd, bwd in (kernels, (None, None)):
         upd.kernel, upd.backward_kernel = fwd, bwd
         trainer.model.zero_grad(set_to_none=True)
         loss, _ = upd.loss(mb, timeline, slots, 0.1, 0.001)
@@ -315,34 +392,36 @@ def minibatch_agreement(trainer, batch, fwd_plain) -> str:
             f"{grad_err:.3e} of max grad {grad_max:.3e}")
 
 
-def update_seconds(trainer, batch, backward_kernel) -> float:
-    """Wall seconds of one PPO update on ``batch`` with the given backward
-    (None: the plain VJP)."""
+def update_seconds(trainer, batch, pair) -> float:
+    """Wall seconds of one PPO update on ``batch`` with the given (forward,
+    backward) kernels (a backward of None: the plain VJP)."""
     upd = trainer.update_fn
-    kept = upd.backward_kernel
-    upd.backward_kernel = backward_kernel
+    kept = upd.kernel, upd.backward_kernel
+    upd.kernel, upd.backward_kernel = pair
     torch.cuda.synchronize()
     t = time.perf_counter()
     upd(batch, 1e-4, 0.1, 0.001)
     torch.cuda.synchronize()
-    upd.backward_kernel = kept
+    upd.kernel, upd.backward_kernel = kept
     return time.perf_counter() - t
 
 
-def split_update(trainer, backward_kernel) -> tuple:
-    """Times one more rollout, then one PPO update on its batch with the
-    plain and the kernel backward in turns (plain, kernel, kernel, plain).
-    Returns (phase start, detail)."""
+def split_update(trainer, pairs: dict) -> tuple:
+    """Times one more rollout, then one PPO update on its batch with each
+    (forward, backward) pair of ``pairs`` in turns, forth and back (a, b, b,
+    a). Returns (phase start, detail)."""
     t = time.perf_counter()
     _, batch = trainer.rollout_fn(trainer.rollout_state)
     torch.cuda.synchronize()
     rollout_s = time.perf_counter() - t
-    order = (None, backward_kernel, backward_kernel, None)
-    secs = [update_seconds(trainer, batch, k) for k in order]
-    return t, (f"rollout {rollout_s:.2f}s; ppo update (plain, kernel, kernel, "
-               f"plain backward) " + " ".join(f"{s:.3f}" for s in secs)
-               + f"s: plain {(secs[0] + secs[3]) / 2:.3f}s, kernel "
-               f"{(secs[1] + secs[2]) / 2:.3f}s")
+    turns = list(pairs) + list(pairs)[::-1]
+    secs = [update_seconds(trainer, batch, pairs[name]) for name in turns]
+    mean = {name: sum(s for n, s in zip(turns, secs) if n == name) / 2
+            for name in pairs}
+    return t, (f"rollout {rollout_s:.2f}s; ppo update in turns "
+               + ", ".join(f"{n} {s:.3f}" for n, s in zip(turns, secs))
+               + "s; mean " + ", ".join(f"{n} {m:.3f}s"
+                                        for n, m in mean.items()))
 
 
 def check_launches(kernels, expected: int, label: str) -> None:
@@ -352,8 +431,9 @@ def check_launches(kernels, expected: int, label: str) -> None:
                                f"times, expected {expected}")
 
 
-def run_flagship(device, kernels, fwd_plain) -> tuple:
-    """Phase 4: the MiniGrid flagship; returns (launches, phase detail)."""
+def run_flagship(device, k) -> list:
+    """Phase 4: the MiniGrid flagship; returns the launches of the counted
+    run, in the order of NAMES."""
     from etmppo_tpu_torch.config import MINIGRID_FLAGSHIP, config_from_dict
     from etmppo_tpu_torch.training.trainer import PPOTrainer
     t = time.perf_counter()
@@ -365,11 +445,12 @@ def run_flagship(device, kernels, fwd_plain) -> tuple:
             raise RuntimeError("the flagship config must use the backward "
                                "kernel")
         trainer = PPOTrainer(config, run_id="chip_smoke", device=device)
+        fwd, bwd, fwd_g, bwd_g = (k[n] for n in NAMES)
         try:
             torch.cuda.synchronize()
             phase("trainer-setup", t)
-            for k in kernels:
-                k.launches = 0
+            for kernel in k.values():
+                kernel.launches = 0
             per_update = []
             for u in range(UPDATES):
                 tu = time.perf_counter()
@@ -379,13 +460,14 @@ def run_flagship(device, kernels, fwd_plain) -> tuple:
                 bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
                 if bad:
                     raise RuntimeError(f"update {u}: non-finite stats {bad}")
-                check_launches(kernels, FLAGSHIP_LAUNCHES * (u + 1),
+                check_launches((fwd, bwd), FLAGSHIP_LAUNCHES * (u + 1),
                                f"flagship update {u}")
+                check_launches((fwd_g, bwd_g), 0, f"flagship update {u}")
                 print(f"update {u}: {per_update[-1]:.2f}s "
                       f"loss {stats['loss']:.6f} entropy "
                       f"{stats['entropy']:.4f} value_loss "
                       f"{stats['value_loss']:.6f}", flush=True)
-            launches = [k.launches for k in kernels]
+            launches = [k[n].launches for n in NAMES]
             steps = config.n_workers * config.worker_steps
             phase("trainer", t,
                   f"{UPDATES} updates, launches fwd {launches[0]} bwd "
@@ -396,9 +478,9 @@ def run_flagship(device, kernels, fwd_plain) -> tuple:
             # on one more rollout's data, and where an update's time goes.
             t = time.perf_counter()
             _, batch = trainer.rollout_fn(trainer.rollout_state)
-            phase("trainer-check", t,
-                  minibatch_agreement(trainer, batch, fwd_plain))
-            phase("trainer-split", *split_update(trainer, kernels[1]))
+            phase("trainer-check", t, minibatch_agreement(trainer, batch))
+            phase("trainer-split", *split_update(trainer, {
+                "plain backward": (fwd, None), "kernel backward": (fwd, bwd)}))
         finally:
             trainer.close()
     return launches
@@ -431,9 +513,10 @@ def _assert_same(a, b, where: str) -> None:
         raise RuntimeError(f"resume: {where} differs ({a} vs {b})")
 
 
-def run_mysterypath(device, kernels) -> list:
+def run_mysterypath(device, k) -> list:
     """Phase 5: Mystery Path Grid through run_training with checkpoints,
-    resume, and the saved model; returns the launches of the counted run."""
+    resume, and the saved model; returns the launches of the counted run, in
+    the order of NAMES."""
     from etmppo_tpu_torch.config import MYSTERY_PATH_GRID, config_from_dict
     from etmppo_tpu_torch.training.checkpoint import load_model
     from etmppo_tpu_torch.training.trainer import PPOTrainer
@@ -443,14 +526,17 @@ def run_mysterypath(device, kernels) -> list:
             config_from_dict(MYSTERY_PATH_GRID), updates=UPDATES,
             checkpoint_interval=1, summary_dir=tmp, checkpoint_dir=tmp)
         trainer = PPOTrainer(config, run_id="mpg", device=device)
+        per_sample = (k[NAMES[0]], k[NAMES[1]])
+        grouped = (k[NAMES[2]], k[NAMES[3]])
         torch.cuda.synchronize()
         phase("mysterypath-setup", t)
         t = time.perf_counter()
-        for k in kernels:
-            k.launches = 0
+        for kernel in k.values():
+            kernel.launches = 0
         result = trainer.run_training()
-        launches = [k.launches for k in kernels]
-        check_launches(kernels, MYSTERY_LAUNCHES * UPDATES, "mysterypath")
+        launches = [k[n].launches for n in NAMES]
+        check_launches(per_sample, MYSTERY_LAUNCHES * UPDATES, "mysterypath")
+        check_launches(grouped, 0, "mysterypath")
         trainer.close()
         n_rows = _finite_csv(trainer.writer.csv_path)
         if n_rows != UPDATES:
@@ -467,19 +553,149 @@ def run_mysterypath(device, kernels) -> list:
             raise RuntimeError(f"resume: at update {resumed.update}")
         _assert_same(resumed._training_state(), trainer._training_state(),
                      "state")
-        for k in kernels:
-            k.launches = 0
+        for kernel in k.values():
+            kernel.launches = 0
         stats = resumed.train_one_update()
         bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
         if bad:
             raise RuntimeError(f"resumed update: non-finite stats {bad}")
-        check_launches(kernels, MYSTERY_LAUNCHES, "resumed update")
+        check_launches(per_sample, MYSTERY_LAUNCHES, "resumed update")
         model, _ = load_model(os.path.join(tmp, "mpg.nn"), device)
         _assert_same(model.state_dict(), trainer.model.state_dict(), "model")
         phase("mysterypath-resume", t,
               f"resumed at update {UPDATES} bit for bit; update {UPDATES} "
               f"loss {stats['loss']:.6f}; mpg.nn loads to the same weights")
-        phase("mysterypath-split", *split_update(resumed, kernels[1]))
+        phase("mysterypath-split", *split_update(resumed, {
+            "plain backward": (per_sample[0], None),
+            "kernel backward": per_sample}))
+    return launches
+
+
+def update_drift(trainer, batch, pair, deterministic: bool = False) -> float:
+    """Two PPO updates with the (forward, backward) ``pair`` from one state,
+    on one batch and one set of permutations: the largest difference of a
+    parameter between the two. With ``deterministic``, PyTorch's own
+    operations run with ``torch.use_deterministic_algorithms`` (warn only)
+    and ``cudnn.deterministic``, so that what is left comes from the
+    window-attention kernels."""
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic)
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+    upd = trainer.update_fn
+    model_state = copy.deepcopy(trainer.model.state_dict())
+    opt_state = copy.deepcopy(upd.optimizer.state_dict())
+    cfg = trainer.config
+    gen = torch.Generator(trainer.device).manual_seed(11)
+    perms = torch.stack([torch.randperm(cfg.batch_size, generator=gen,
+                                        device=trainer.device)
+                         for _ in range(cfg.epochs)])
+    kept = upd.kernel, upd.backward_kernel
+    upd.kernel, upd.backward_kernel = pair
+    after = []
+    for _ in range(2):
+        trainer.model.load_state_dict(model_state)
+        upd.optimizer.load_state_dict(copy.deepcopy(opt_state))
+        upd(batch, 1e-4, 0.1, 0.001, perms=perms)
+        after.append([p.detach().clone() for p in trainer.model.parameters()])
+    upd.kernel, upd.backward_kernel = kept
+    trainer.model.load_state_dict(model_state)
+    upd.optimizer.load_state_dict(opt_state)
+    torch.use_deterministic_algorithms(flags[0], warn_only=True)
+    torch.backends.cudnn.deterministic = flags[1]
+    return max((a - b).abs().max().item() for a, b in zip(*after))
+
+
+def run_mortarmayhem(device, k) -> list:
+    """Phase 6: Mortar Mayhem Grid with the grouped kernels; returns the
+    launches of the counted run, in the order of NAMES."""
+    from etmppo_tpu_torch.config import MORTAR_MAYHEM_GRID, config_from_dict
+    from etmppo_tpu_torch.training.checkpoint import load_model
+    from etmppo_tpu_torch.training.trainer import PPOTrainer
+    t = time.perf_counter()
+    per_sample = (k[NAMES[0]], k[NAMES[1]])
+    grouped = (k[NAMES[2]], k[NAMES[3]])
+    with tempfile.TemporaryDirectory() as tmp:
+        config = dataclasses.replace(
+            config_from_dict(MORTAR_MAYHEM_GRID), updates=UPDATES,
+            summary_dir=tmp, checkpoint_dir=tmp)
+        trainer = PPOTrainer(config, run_id="mmg", device=device,
+                             grouped=True)
+        try:
+            upd = trainer.update_fn
+            if (upd.kernel, upd.backward_kernel) != grouped:
+                raise RuntimeError("the Mortar Mayhem trainer must use the "
+                                   "grouped kernels")
+            trx = config.transformer
+            max_ep = trainer.max_episode_steps
+            shape = (config.n_workers, config.worker_steps, max_ep,
+                     trx.memory_length, trx.embed_dim,
+                     config.mini_batch_size)
+            if shape != SHAPES["mortarmayhem"]:
+                raise RuntimeError(f"mortarmayhem: kernel shape {shape}, "
+                                   f"expected {SHAPES['mortarmayhem']}")
+            torch.cuda.synchronize()
+            phase("mortarmayhem-setup", t,
+                  f"kernel shape B={config.mini_batch_size} "
+                  f"W={config.n_workers} "
+                  f"S={max_ep + config.worker_steps + trx.memory_length} "
+                  f"P={max_ep} L={trx.memory_length} D={trx.embed_dim} "
+                  f"H={trx.num_heads}")
+            t = time.perf_counter()
+            for kernel in k.values():
+                kernel.launches = 0
+            per_update = []
+            for u in range(UPDATES):
+                tu = time.perf_counter()
+                stats = trainer.train_one_update()
+                torch.cuda.synchronize()
+                per_update.append(time.perf_counter() - tu)
+                bad = {n: v for n, v in stats.items() if not math.isfinite(v)}
+                if bad:
+                    raise RuntimeError(f"update {u}: non-finite stats {bad}")
+                check_launches(grouped, MORTAR_LAUNCHES * (u + 1),
+                               f"mortarmayhem update {u}")
+                check_launches(per_sample, 0, f"mortarmayhem update {u}")
+                print(f"update {u}: {per_update[-1]:.2f}s "
+                      f"loss {stats['loss']:.6f} entropy "
+                      f"{stats['entropy']:.4f} value_loss "
+                      f"{stats['value_loss']:.6f}", flush=True)
+            launches = [k[n].launches for n in NAMES]
+            trainer._save_model()
+            model, _ = load_model(os.path.join(tmp, "mmg.nn"), device)
+            _assert_same(model.state_dict(), trainer.model.state_dict(),
+                         "model")
+            steps = config.n_workers * config.worker_steps
+            phase("mortarmayhem", t,
+                  f"{UPDATES} updates, launches fwd_grouped {launches[2]} "
+                  f"bwd_grouped {launches[3]}; s/update "
+                  + " ".join(f"{s:.2f}" for s in per_update)
+                  + f"; env-steps/s {steps / per_update[-1]:.0f} (update 2);"
+                  " mmg.nn loads to the same weights")
+
+            t = time.perf_counter()
+            _, batch = trainer.rollout_fn(trainer.rollout_state)
+            phase("mortarmayhem-check", t,
+                  minibatch_agreement(trainer, batch))
+            phase("mortarmayhem-split", *split_update(trainer, {
+                "plain backward": (grouped[0], None),
+                "per-sample pair": per_sample, "grouped pair": grouped}))
+            t = time.perf_counter()
+            drift = {(name, det): update_drift(trainer, batch, pair, det)
+                     for det in (False, True) for name, pair in
+                     (("per-sample pair", per_sample),
+                      ("grouped pair", grouped))}
+            phase("determinism", t,
+                  "largest parameter difference between two PPO updates "
+                  "from one state and batch: " + ", ".join(
+                      f"{name} {d:.3e}" for (name, det), d in drift.items()
+                      if not det) + "; with PyTorch's deterministic "
+                  "algorithms: " + ", ".join(
+                      f"{name} {d:.3e}" for (name, det), d in drift.items()
+                      if det))
+        finally:
+            trainer.close()
     return launches
 
 
@@ -500,10 +716,8 @@ def main() -> int:
     phase("device", start, f"{kind}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
-    from etmppo_tpu_torch.ops.window_attention import (
-        window_attention_bwd, window_attention_bwd_plain, window_attention_fwd,
-        window_attention_plain)
-    kernels = (window_attention_fwd, window_attention_bwd)
+    from etmppo_tpu_torch.ops import window_attention as wa
+    k = {name: getattr(wa, name) for name in NAMES}
 
     t = time.perf_counter()
 
@@ -513,53 +727,54 @@ def main() -> int:
         path = kernel.build()
         return (f"{path.name} {time.perf_counter() - begin:.2f}s "
                 f"({'reused' if existed else 'nvcc'})")
-    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
-        built = list(pool.map(timed_build, kernels))
+    with ThreadPoolExecutor(max_workers=len(k)) as pool:
+        built = list(pool.map(timed_build, k.values()))
     phase("build", t, "; ".join(built))
 
     t = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
-    edge_args, heads = edge_inputs(gen, device)
-    edge_g = torch.randn(edge_args[0].shape, generator=gen).to(device)
-    edge_fwd = check_forward(window_attention_fwd, window_attention_plain,
-                             edge_args, heads, "edge case")
-    edge_bwd, _ = check_backward(window_attention_bwd,
-                                 window_attention_bwd_plain, edge_args,
-                                 edge_g, heads, "edge case")
-    measured = {shape: measure_shape(
-        window_attention_fwd, window_attention_bwd, window_attention_plain,
-        window_attention_bwd_plain, gen, device, shape) for shape in SHAPES}
-    del edge_args, edge_g
-    phase("kernel", t, f"edge err fwd {edge_fwd:.3e} bwd {edge_bwd:.3e}; "
-          + "; ".join(f"{shape} {describe(name, m)}"
-                      for shape, by_name in measured.items()
-                      for name, m in by_name.items()))
+    edge = {}
+    for label, one_worker in (("edge case", False), ("one worker", True)):
+        args, heads = edge_inputs(gen, device, one_worker)
+        g = torch.randn(args[0].shape, generator=gen).to(device)
+        edge[label] = check_all(k, args, g, heads, label)
+        del args, g
+    measured = {shape: measure_shape(k, gen, device, shape)
+                for shape in SHAPES}
+    phase("kernel", t, "; ".join(
+        f"{label} err " + " ".join(f"{name} {m['max_abs_err']:.3e}"
+                                   for name, m in errs.items())
+        for label, errs in edge.items()) + "; " + "; ".join(
+        f"{shape} {describe(name, m)}" for shape, by_name in measured.items()
+        for name, m in by_name.items()))
     torch.cuda.empty_cache()
 
-    launches = {"flagship": run_flagship(device, kernels,
-                                         window_attention_plain)}
+    launches = {"flagship": run_flagship(device, k)}
     torch.cuda.empty_cache()
-    launches["mysterypath"] = run_mysterypath(device, kernels)
+    launches["mysterypath"] = run_mysterypath(device, k)
+    torch.cuda.empty_cache()
+    launches["mortarmayhem"] = run_mortarmayhem(device, k)
 
     entries = []
-    for i, k in enumerate(kernels):
-        name = k.symbol
-        main_shape = measured["flagship"][name]
+    for i, name in enumerate(NAMES):
+        main_shape = measured[MAIN_SHAPE[name]][name]
         entries.append({
             "name": name, "route": "cuda",
-            "source": os.path.relpath(k.source, os.getcwd()),
+            "source": os.path.relpath(k[name].source, os.getcwd()),
             "replaces": REPLACES[name],
             "launches": sum(v[i] for v in launches.values()),
             "launches_by_path": {p: v[i] for p, v in launches.items()},
-            "max_abs_err": max([edge_fwd, edge_bwd][i], *(
-                m[name]["max_abs_err"] for m in measured.values())),
+            "max_abs_err": max(m[name]["max_abs_err"] for m in
+                               list(edge.values()) + list(measured.values())),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
-            "mysterypath_shape": {
-                key: measured["mysterypath"][name][key] for key in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "main_shape": MAIN_SHAPE[name],
+            "by_shape": {shape: {key: m[name][key] for key in
+                                 ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "max_abs_err")}
+                         for shape, m in measured.items()},
         })
     print(json.dumps({"kernels": entries}))
     phase("total", start)

@@ -35,9 +35,9 @@
 // zeroes on the same stream before the launch. Zero contributions (masked rows,
 // whose p and ds are exactly 0) are skipped, which changes no bit of the sums.
 // The order of the additions, and so the last bits of dK/dV/dPE, varies from
-// run to run. The deterministic alternative is a sort of the minibatch by
-// worker followed by a segmented reduction, the design of the grouped pair
-// (`_grouped_bwd_kernel`, a later port).
+// run to run. The deterministic alternative, a sort of the minibatch by worker
+// followed by an output-stationary reduction with no atomics, is the grouped
+// backward, window_attention_bwd_grouped.cu (`_grouped_bwd_kernel`).
 //
 // Layout: one CTA per (sample, head), 128 threads. Scores and dp: one warp per
 // window row, lanes striding over the head's dims (coalesced), shuffle

@@ -6,18 +6,28 @@ window is ``timeline[w_idx[b], start[b] : start[b] + n_valid[b]]`` followed by
 ``softmax(where(mask, q . K^T, -1e20) / sqrt(D)) . V``.
 
 * ``window_attention_plain`` is the plain PyTorch formulation (the semantics of
-  ``xla_window_attention``) and ``window_attention_bwd_plain`` its VJP. CPU
-  tensors take them.
-* ``WindowAttentionForward`` and ``WindowAttentionBackward`` wrap the
-  hand-written CUDA kernels (``csrc/window_attention_fwd.cu`` and
-  ``csrc/window_attention_bwd.cu``). nvcc builds each at first use into a
-  shared library with a plain C interface, loaded with ctypes; each keeps a
-  count of its launches.
-* ``window_attention`` is the autograd op. Its forward launches the forward
-  kernel for CUDA tensors. Its backward launches the backward kernel when the
-  caller passes one (``pallas_backward: true``), else it re-derives the
-  gradients through the plain version (the JAX package's
-  ``BACKWARD_MODE = "xla"``). The choice is the caller's, per call.
+  ``xla_window_attention``) and ``window_attention_bwd_plain`` its VJP.
+  ``window_attention_grouped_plain`` and ``window_attention_grouped_bwd_plain``
+  are the grouped pair's: the minibatch stably sorted by worker
+  (``_sorted_by_worker``), the results scattered back, and the backward's
+  timeline and PE gradients accumulated in the sorted order.
+* Four wrappers of hand-written CUDA kernels, each with its plain version as
+  ``plain``: ``WindowAttentionForward`` and ``WindowAttentionBackward``
+  (``csrc/window_attention_fwd.cu``, ``csrc/window_attention_bwd.cu``: a CTA
+  per sample, the backward with fp32 atomics) and the grouped pair
+  ``WindowAttentionForwardGrouped`` and ``WindowAttentionBackwardGrouped``
+  (``csrc/window_attention_fwd_grouped.cu``,
+  ``csrc/window_attention_bwd_grouped.cu``: sorted by worker, the backward
+  free of atomics and bit-for-bit repeatable). nvcc builds each at first use
+  into a shared library with a plain C interface, loaded with ctypes; each
+  keeps a count of its launches.
+* ``window_attention`` is the autograd op. The caller picks the forward
+  (``kernel``) and the backward (``backward_kernel``) per call, which mirrors
+  the JAX package's ``GROUPED_MODE`` and ``BACKWARD_MODE`` switches: the
+  per-sample or the grouped forward; the matching backward kernel
+  (``BACKWARD_MODE = "pallas"``), or None for the plain VJP (``"xla"``). CUDA
+  tensors launch the kernels; CPU tensors take each kernel's plain version. A
+  kernel of None is the plain version on either device.
 """
 from __future__ import annotations
 
@@ -38,6 +48,8 @@ MASK_FILL = -1e20
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 FWD_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_fwd.cu"
 BWD_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_bwd.cu"
+FWD_GROUPED_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_fwd_grouped.cu"
+BWD_GROUPED_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_bwd_grouped.cu"
 BUILD_DIR = _PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
@@ -82,6 +94,81 @@ def window_attention_bwd_plain(q, timeline_k, timeline_v, pe_k, pe_v, w_idx,
                                          mask, num_heads)
             grads = iter(torch.autograd.grad(out, wanted, g))
     return tuple(next(grads) if t.requires_grad else None for t in diff)
+
+
+def _sorted_by_worker(w_idx, *tensors):
+    """A stable sort of the minibatch by worker (counterpart of
+    ``_sorted_by_worker``): the order, and each tensor taken in it."""
+    order = torch.sort(w_idx, stable=True).indices
+    return order, [t[order] for t in tensors]
+
+
+def _scatter_back(order, rows_sorted):
+    out = torch.empty_like(rows_sorted)
+    out[order] = rows_sorted
+    return out
+
+
+def window_attention_grouped_plain(q, timeline_k, timeline_v, pe_k, pe_v,
+                                   w_idx, start, n_valid, s_lo, mask,
+                                   num_heads: int):
+    """The grouped forward's plain version: ``window_attention_plain`` on the
+    minibatch sorted by worker, scattered back to the original order."""
+    order, (w_s, start_s, n_s, slo_s, q_s, mask_s) = _sorted_by_worker(
+        w_idx, w_idx, start, n_valid, s_lo, q, mask)
+    out_s = window_attention_plain(q_s, timeline_k, timeline_v, pe_k, pe_v,
+                                   w_s, start_s, n_s, slo_s, mask_s, num_heads)
+    return _scatter_back(order, out_s)
+
+
+def window_attention_grouped_bwd_plain(q, timeline_k, timeline_v, pe_k, pe_v,
+                                       w_idx, start, n_valid, s_lo, mask, g,
+                                       num_heads: int,
+                                       needs_grad: Sequence[bool] = (True,) * 5):
+    """The grouped backward's plain version, written out: p and ds per sample
+    of the minibatch sorted by worker, then dK = ds q and dV = p g added into
+    the timeline and PE tables with ``index_add_`` in that order (sequential,
+    so deterministic, on the CPU). Returns (dq, dtk, dtv, dpk, dpv) like
+    ``window_attention_bwd_plain``."""
+    B, D = q.shape
+    W, S, _ = timeline_k.shape
+    P = pe_k.shape[0]
+    L = mask.shape[1]
+    H, hd = num_heads, D // num_heads
+    order, (w_s, start_s, n_s, slo_s, q_s, mask_s, g_s) = _sorted_by_worker(
+        w_idx, w_idx, start, n_valid, s_lo, q, mask, g)
+    offs = torch.arange(L, device=q.device)
+    rows = (w_s.long() * S + start_s.long())[:, None] + offs     # (B, L)
+    pe_rows = slo_s.long()[:, None] + offs
+    valid = offs < n_s.long()[:, None]
+    flat_k = timeline_k.reshape(W * S, D)
+    flat_v = timeline_v.reshape(W * S, D)
+    k = torch.where(valid[..., None], flat_k[rows], pe_k[pe_rows])
+    v = torch.where(valid[..., None], flat_v[rows], pe_v[pe_rows])
+    qh, gh = q_s.reshape(B, H, hd), g_s.reshape(B, H, hd)
+    kh, vh = k.reshape(B, L, H, hd), v.reshape(B, L, H, hd)
+    masked = ~mask_s.bool()[:, None, :]
+    energy = torch.einsum("bhd,blhd->bhl", qh, kh).masked_fill(masked,
+                                                               MASK_FILL)
+    p = torch.softmax(energy / math.sqrt(D), dim=-1)
+    dp = torch.einsum("bhd,blhd->bhl", gh, vh)
+    ds = (p * (dp - (p * dp).sum(-1, keepdim=True))
+          / math.sqrt(D)).masked_fill(masked, 0.0)
+    dq = _scatter_back(order, torch.einsum("bhl,blhd->bhd", ds, kh).reshape(
+        B, D))
+    dk = torch.einsum("bhl,bhd->blhd", ds, qh).reshape(B, L, D)
+    dv = torch.einsum("bhl,bhd->blhd", p, gh).reshape(B, L, D)
+
+    def accumulate(n_rows, idx, values):
+        return torch.zeros(n_rows, D, dtype=q.dtype,
+                           device=q.device).index_add_(0, idx, values)
+
+    dtk = accumulate(W * S, rows[valid], dk[valid]).reshape(W, S, D)
+    dtv = accumulate(W * S, rows[valid], dv[valid]).reshape(W, S, D)
+    dpk = accumulate(P, pe_rows[~valid], dk[~valid])
+    dpv = accumulate(P, pe_rows[~valid], dv[~valid])
+    return tuple(t if need else None for t, need in
+                 zip((dq, dtk, dtv, dpk, dpv), needs_grad))
 
 
 class _CudaKernel:
@@ -151,10 +238,11 @@ class _CudaKernel:
 
 
 class WindowAttentionForward(_CudaKernel):
-    """The CUDA forward kernel: out (B, D)."""
+    """The CUDA forward kernel, a CTA per (sample, head): out (B, D)."""
 
     symbol = "window_attention_fwd"
     n_pointers = 11
+    plain = staticmethod(window_attention_plain)
 
     def __init__(self, source: Path = FWD_SOURCE,
                  build_dir: Path = BUILD_DIR):
@@ -174,13 +262,15 @@ class WindowAttentionForward(_CudaKernel):
 
 
 class WindowAttentionBackward(_CudaKernel):
-    """The CUDA backward kernel: (dq, dtk, dtv, dpk, dpv) for the output
-    gradient g. The gradient tables are zeroed on the current stream, then
-    the kernel adds into them with fp32 atomics, so their last bits vary from
-    run to run."""
+    """The CUDA backward kernel, a CTA per (sample, head): (dq, dtk, dtv,
+    dpk, dpv) for the output gradient g. The gradient tables are zeroed on
+    the current stream, then the kernel adds into them with fp32 atomics, so
+    their last bits vary from run to run (``WindowAttentionBackwardGrouped``
+    is the deterministic alternative)."""
 
     symbol = "window_attention_bwd"
     n_pointers = 16
+    plain = staticmethod(window_attention_bwd_plain)
 
     def __init__(self, source: Path = BWD_SOURCE,
                  build_dir: Path = BUILD_DIR):
@@ -191,10 +281,7 @@ class WindowAttentionBackward(_CudaKernel):
         inputs = (q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
                   n_valid, s_lo, mask)
         B, D = _check_inputs(*inputs, num_heads)
-        if (g.device != q.device or g.dtype != torch.float32
-                or g.shape != q.shape or not g.is_contiguous()):
-            raise ValueError("g must be a contiguous float32 tensor shaped "
-                             "and placed like q")
+        _check_grad(g, q)
         W, S, _ = timeline_k.shape
         dq = torch.empty_like(q)
         grads = [torch.zeros_like(t) for t in
@@ -203,6 +290,87 @@ class WindowAttentionBackward(_CudaKernel):
                      (B, W, S, pe_k.shape[0], mask.shape[1], D, num_heads),
                      q.device)
         return (dq, *grads)
+
+
+class WindowAttentionForwardGrouped(_CudaKernel):
+    """The grouped CUDA forward: out (B, D). The wrapper sorts the minibatch
+    by worker (``torch.sort(..., stable=True)``, deterministic on CUDA); the
+    kernel reads the samples through that order and writes each output back
+    to its own row."""
+
+    symbol = "window_attention_fwd_grouped"
+    n_pointers = 13
+    plain = staticmethod(window_attention_grouped_plain)
+
+    def __init__(self, source: Path = FWD_GROUPED_SOURCE,
+                 build_dir: Path = BUILD_DIR):
+        super().__init__(source, build_dir)
+
+    def __call__(self, q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
+                 n_valid, s_lo, mask, num_heads: int) -> torch.Tensor:
+        inputs = (q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
+                  n_valid, s_lo, mask)
+        B, D = _check_inputs(*inputs, num_heads)
+        W, S, _ = timeline_k.shape
+        w_sorted, order = torch.sort(w_idx, stable=True)
+        out = torch.empty_like(q)
+        self._launch([t.data_ptr() for t in inputs + (order, w_sorted, out)],
+                     (B, W, S, pe_k.shape[0], mask.shape[1], D, num_heads),
+                     q.device)
+        return out
+
+
+class WindowAttentionBackwardGrouped(_CudaKernel):
+    """The grouped, deterministic CUDA backward: (dq, dtk, dtv, dpk, dpv) for
+    the output gradient g. No float is added atomically and every entry is
+    summed in one fixed order (the minibatch sorted by worker), so two calls
+    on one input return the same bits. One call launches the kernel's three
+    passes and counts as one launch."""
+
+    symbol = "window_attention_bwd_grouped"
+    n_pointers = 22
+    plain = staticmethod(window_attention_grouped_bwd_plain)
+
+    def __init__(self, source: Path = BWD_GROUPED_SOURCE,
+                 build_dir: Path = BUILD_DIR):
+        super().__init__(source, build_dir)
+        self._pe_chunk = None
+
+    def pe_chunk(self) -> int:
+        """Sorted samples per partial PE-gradient sum, as the source sets."""
+        if self._pe_chunk is None:
+            self._function()
+            fn = self._lib.window_attention_bwd_grouped_pe_chunk
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+            self._pe_chunk = int(fn())
+        return self._pe_chunk
+
+    def __call__(self, q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
+                 n_valid, s_lo, mask, g, num_heads: int):
+        inputs = (q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
+                  n_valid, s_lo, mask)
+        B, D = _check_inputs(*inputs, num_heads)
+        _check_grad(g, q)
+        W, S, _ = timeline_k.shape
+        P, L = pe_k.shape[0], mask.shape[1]
+        w_sorted, order = torch.sort(w_idx, stable=True)
+        seg = torch.searchsorted(
+            w_sorted, torch.arange(W + 1, dtype=torch.int32, device=q.device),
+            out_int32=True)
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                         device=q.device)
+        scratch = (new(B, num_heads, L), new(B, num_heads, L),
+                   new(-(-B // self.pe_chunk()), P, D),
+                   new(-(-B // self.pe_chunk()), P, D))
+        grads = [torch.empty_like(t) for t in
+                 (q, timeline_k, timeline_v, pe_k, pe_v)]
+        # order, seg and the scratch are freed when this returns; the caching
+        # allocator gives their memory only to later work on this stream.
+        self._launch([t.data_ptr() for t in
+                      inputs + (g, order, seg, *scratch, *grads)],
+                     (B, W, S, P, L, D, num_heads), q.device)
+        return tuple(grads)
 
 
 def _check_inputs(q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
@@ -242,8 +410,17 @@ def _check_inputs(q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
     return B, D
 
 
+def _check_grad(g, q) -> None:
+    if (g.device != q.device or g.dtype != torch.float32
+            or g.shape != q.shape or not g.is_contiguous()):
+        raise ValueError("g must be a contiguous float32 tensor shaped "
+                         "and placed like q")
+
+
 window_attention_fwd = WindowAttentionForward()
 window_attention_bwd = WindowAttentionBackward()
+window_attention_fwd_grouped = WindowAttentionForwardGrouped()
+window_attention_bwd_grouped = WindowAttentionBackwardGrouped()
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -256,34 +433,41 @@ class _WindowAttention(torch.autograd.Function):
         ctx.backward_kernel = backward_kernel
         args = (q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start, n_valid,
                 s_lo, mask, num_heads)
-        if q.device.type == "cpu":
+        if kernel is None:
             return window_attention_plain(*args)
+        if q.device.type == "cpu":
+            return kernel.plain(*args)
         return kernel(*args)
 
     @staticmethod
     def backward(ctx, grad_out):
         saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[:5]
+        kernel = ctx.backward_kernel
         if not any(needs):
             grads = (None,) * 5
-        elif saved[0].device.type == "cpu" or ctx.backward_kernel is None:
+        elif kernel is None:
             grads = window_attention_bwd_plain(*saved, grad_out,
                                                ctx.num_heads, needs)
+        elif saved[0].device.type == "cpu":
+            grads = kernel.plain(*saved, grad_out, ctx.num_heads, needs)
         else:
-            grads = ctx.backward_kernel(*saved, grad_out.contiguous(),
-                                        ctx.num_heads)
+            grads = kernel(*saved, grad_out.contiguous(), ctx.num_heads)
             grads = tuple(t if need else None for t, need in zip(grads, needs))
         return (*grads, None, None, None, None, None, None, None, None)
 
 
 def window_attention(q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
                      n_valid, s_lo, mask, num_heads: int,
-                     kernel: WindowAttentionForward = window_attention_fwd,
-                     backward_kernel: Optional[WindowAttentionBackward] = None):
+                     kernel: Optional[_CudaKernel] = window_attention_fwd,
+                     backward_kernel: Optional[_CudaKernel] = None):
     """Differentiable window attention (counterpart of
     ``fused_window_attention``). CUDA inputs go forward through ``kernel``
-    and backward through ``backward_kernel``, or through the plain VJP when
-    it is None; CPU inputs go through the plain versions both ways."""
+    (the per-sample or the grouped forward) and backward through
+    ``backward_kernel`` (the per-sample or the grouped backward); CPU inputs
+    go through those kernels' plain versions. A ``kernel`` of None is the
+    plain forward, a ``backward_kernel`` of None the plain VJP, on either
+    device."""
     return _WindowAttention.apply(q, timeline_k, timeline_v, pe_k, pe_v,
                                   w_idx, start, n_valid, s_lo, mask,
                                   num_heads, kernel, backward_kernel)

@@ -13,7 +13,9 @@ Memory windows are never gathered: the update projects each worker's memory
 timeline once per minibatch, and each block's attention reads its window
 straight from the projected timeline (``ops/window_attention.py``, the CUDA
 forward kernel on the card). With ``pallas_backward`` the attention backward
-is the CUDA backward kernel too; without it, the plain PyTorch VJP.
+is the CUDA backward kernel too; without it, the plain PyTorch VJP. With
+``grouped`` (the JAX package's ``GROUPED_MODE``) the pair is the grouped one:
+the minibatch sorted by worker, and a backward free of atomics.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ from ..ops.memory_index import (build_memory_indices, build_memory_mask,
                                 build_timeline, build_timeline_slots,
                                 compute_timeline_sources)
 from ..ops.window_attention import (window_attention, window_attention_bwd,
-                                    window_attention_fwd)
+                                    window_attention_bwd_grouped,
+                                    window_attention_fwd,
+                                    window_attention_fwd_grouped)
 from .rollout import RolloutBatch
 
 STAT_NAMES = ("policy_loss", "value_loss", "loss", "entropy", "kl",
@@ -101,10 +105,13 @@ def loss_from_outputs(logits, value, mb, clip_range: float, beta: float,
 
 class PPOUpdate:
     """One PPO update of ``model`` from a rollout batch. The per-epoch
-    permutations come from ``generator`` unless the caller passes them."""
+    permutations come from ``generator`` unless the caller passes them.
+    ``grouped`` selects the grouped window-attention kernels (sorted by
+    worker) in place of the per-sample ones."""
 
     def __init__(self, config: TrainConfig, model: ActorCriticModel,
-                 max_episode_steps: int, generator: torch.Generator):
+                 max_episode_steps: int, generator: torch.Generator,
+                 grouped: bool = False):
         if not config.use_pallas_attention:
             raise NotImplementedError(
                 "only the window-attention loss is ported "
@@ -113,11 +120,13 @@ class PPOUpdate:
         self.model = model
         self.max_ep = max_episode_steps
         self.generator = generator
-        # The window-attention kernels for CUDA tensors (CPU tensors take the
-        # plain versions inside the op); no backward kernel means the plain
-        # VJP on the card.
-        self.kernel = window_attention_fwd
-        self.backward_kernel = (window_attention_bwd if config.pallas_backward
+        # The window-attention kernels for CUDA tensors (CPU tensors take
+        # their plain versions inside the op); no backward kernel means the
+        # plain VJP.
+        self.kernel, backward_kernel = (
+            (window_attention_fwd_grouped, window_attention_bwd_grouped)
+            if grouped else (window_attention_fwd, window_attention_bwd))
+        self.backward_kernel = (backward_kernel if config.pallas_backward
                                 else None)
         device = next(model.parameters()).device
         L = config.transformer.memory_length

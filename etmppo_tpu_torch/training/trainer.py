@@ -9,8 +9,8 @@ latest checkpoint of the run.
 
 What the JAX package runs as fused device programs (``training/fused.py``)
 has no counterpart: PyTorch runs eagerly. The kernel choice is this
-trainer's (``config.use_pallas_attention``, ``config.pallas_backward``), not
-a module global.
+trainer's (``config.use_pallas_attention``, ``config.pallas_backward``, and
+the keyword ``grouped`` for the grouped pair), not a module global.
 """
 from __future__ import annotations
 
@@ -51,7 +51,8 @@ def _check_supported(config: TrainConfig) -> None:
 
 class PPOTrainer:
     def __init__(self, config: TrainConfig, run_id: str = "run",
-                 device="cuda", enable_metrics: bool = True):
+                 device="cuda", enable_metrics: bool = True,
+                 grouped: bool = False):
         _check_supported(config)
         self.config = config
         self.run_id = run_id
@@ -68,7 +69,7 @@ class PPOTrainer:
         update_gen = torch.Generator(self.device).manual_seed(config.seed + 2)
         self.rollout_fn = RolloutFn(config, self.env, self.model, rollout_gen)
         self.update_fn = PPOUpdate(config, self.model, self.max_episode_steps,
-                                   update_gen)
+                                   update_gen, grouped=grouped)
         self.rollout_state = self.rollout_fn.init_state()
 
         self.update = 0

@@ -46,7 +46,7 @@ torch.set_num_threads(1)
 torch.backends.cudnn.allow_tf32 = False
 
 ARTIFACTS = sorted(glob.glob("models/*.nn"))
-PORTED_ENVS = ("Minigrid", "MysteryPath-Grid")
+PORTED_ENVS = ("Minigrid", "MysteryPath-Grid", "MortarMayhem-Grid")
 
 
 def _payload(path):
@@ -148,7 +148,8 @@ def test_load_model_refuses_a_pickled_class(tmp_path):
 
 
 @pytest.mark.parametrize("path", ["models/minigrid-tpu.nn",
-                                  "models/mpg-gtrxl.nn"])
+                                  "models/mpg-gtrxl.nn", "models/mmg-full.nn",
+                                  "models/mmg-s1.nn"])
 def test_loaded_model_forward_matches_jax(path):
     model, config = load_model(path)
     params, jconfig = jax_checkpoint.load_model(path)

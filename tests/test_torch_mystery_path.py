@@ -182,5 +182,5 @@ def test_factory_builds_the_flagship_env():
     assert env.n_workers == 4 and env.observation_shape == (84, 84, 3)
     assert env.action_branches == (4,) and env.max_episode_steps == 128
     assert env.size == 7 and not env.show_goal and env.visual_feedback
-    with pytest.raises(NotImplementedError, match="MortarMayhem"):
-        create_env(EnvConfig(type="MortarMayhem-Grid"), 4, "cpu")
+    with pytest.raises(NotImplementedError, match="SearingSpotlights"):
+        create_env(EnvConfig(type="SearingSpotlights"), 4, "cpu")

@@ -161,7 +161,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, etmppo_tpu_torch.cli, etmppo_tpu_torch.interop, "
             "etmppo_tpu_torch.training.trainer, "
             "etmppo_tpu_torch.training.checkpoint, "
-            "etmppo_tpu_torch.envs.mystery_path; "
+            "etmppo_tpu_torch.envs.mystery_path, "
+            "etmppo_tpu_torch.envs.mortar_mayhem; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'msgpack', 'optax', 'yaml', 'etmppo_tpu')]; "
             "assert not bad, bad")
