@@ -12,15 +12,23 @@ Phases, each printing one line with its seconds:
                 the grouped forward and backward), one nvcc process each,
                 started together (a library built from the same source is
                 reused).
-3. kernel:      holds each kernel against its plain PyTorch version, the
-                grouped forward against the per-sample one and the grouped
-                backward against the per-sample one, at the MiniGrid flagship
-                shape (B=1024, W=16, S=672, P=96, L=64, D=384, H=4), the
-                Mystery Path Grid shape (B=2048, W=32, S=736, P=128, L=96,
-                D=256, H=4) and the Mortar Mayhem Grid shape (B=2048, W=32,
-                S=750, P=120, L=118, D=384, H=4), with windows from the
-                port's own index math, and on two small cases: all-masked
-                rows, n_valid in {1, L} and a worker with no samples; a
+3. kernel:      prints each kernel's registers, spills and static shared
+                memory (nvcc's -Xptxas -v report) and the per-sample
+                kernels' launch plans. Holds each kernel against its plain
+                PyTorch version, the grouped forward against the per-sample
+                one and the grouped backward against the per-sample one, at
+                the MiniGrid flagship shape (B=1024, W=16, S=672, P=96, L=64,
+                D=384, H=4), the Mystery Path Grid shape (B=2048, W=32,
+                S=736, P=128, L=96, D=256, H=4) and the Mortar Mayhem Grid
+                shape (B=2048, W=32, S=750, P=120, L=118, D=384, H=4), with
+                windows from the port's own index math, and on the small
+                cases of EDGE_CASES: all-masked rows, n_valid in {1, L} and a
+                worker with no samples, at the flagship's width, at
+                headroom_768.yaml's (L=96, D=768, H=6), at a head width
+                that is not a multiple of 4 (D=40, H=4, L=13), at a width
+                that is not (D=30, H=3) and with tables that are not
+                16-byte aligned (the last two take the per-sample kernels'
+                4-byte copies and scalar atomics); and a
                 minibatch all of one worker. Two calls of the grouped
                 backward must give the same bits. Times kernel, plain
                 version, a library yardstick (gather +
@@ -176,14 +184,41 @@ def window_inputs(gen: torch.Generator, device, shape: str):
     return args, 4
 
 
-def edge_inputs(gen: torch.Generator, device, one_worker: bool = False):
-    """Small cases. Mixed: all-masked rows, n_valid = 1 and n_valid = L, and a
-    worker (the last) with no samples. One worker: every sample of worker 1."""
-    B, W, S, P, L, D = 64, 4, 80, 24, 16, 384
+# Small cases, (B, W, S, P, L, D, H, layout): the MiniGrid flagship's width
+# on a short window; the same with every sample of worker 1 ("one worker");
+# headroom_768.yaml's kernel shape (L=96, D=768, H=6, head width 128) at a
+# small batch; a head width that is not a multiple of 4 (D=40, H=4: 10); a
+# width that is not a multiple of 4 (D=30, H=3), where the per-sample kernels
+# take their 4-byte copies and the backward its scalar atomics; and the
+# flagship's width with the timeline and PE tables as contiguous views that
+# start 4 bytes past a 16-byte boundary ("misaligned"), the same paths.
+EDGE_CASES = {"edge case": (64, 4, 80, 24, 16, 384, 4, "mixed"),
+              "one worker": (64, 4, 80, 24, 16, 384, 4, "one worker"),
+              "headroom_768": (48, 4, 240, 120, 96, 768, 6, "mixed"),
+              "narrow heads": (64, 4, 40, 20, 13, 40, 4, "mixed"),
+              "odd width": (64, 4, 40, 20, 13, 30, 3, "mixed"),
+              "misaligned tables": (64, 4, 80, 24, 16, 384, 4, "misaligned")}
+
+
+def _misaligned(t: torch.Tensor, device) -> torch.Tensor:
+    """A copy of t on the device: a contiguous view one element into a
+    buffer, so that it starts 4 bytes past a 16-byte boundary."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)[1:]
+    view = view.view(t.shape).copy_(t)
+    if view.data_ptr() % 16 == 0:
+        raise RuntimeError("a misaligned view came out 16-byte aligned")
+    return view
+
+
+def edge_inputs(gen: torch.Generator, device, case: str):
+    """A case of EDGE_CASES. Each has all-masked rows, n_valid = 1 and
+    n_valid = L, and a worker (the last) with no samples, except "one
+    worker", where every sample is worker 1's."""
+    B, W, S, P, L, D, heads, layout = EDGE_CASES[case]
     floats = [torch.randn(shape, generator=gen) for shape in
               ((B, D), (W, S, D), (W, S, D), (P, D), (P, D))]
     w_idx = torch.randint(0, W - 1, (B,), generator=gen, dtype=torch.int32)
-    if one_worker:
+    if layout == "one worker":
         w_idx[:] = 1
     start = torch.randint(0, S - L + 1, (B,), generator=gen, dtype=torch.int32)
     n_valid = torch.randint(1, L + 1, (B,), generator=gen, dtype=torch.int32)
@@ -194,7 +229,18 @@ def edge_inputs(gen: torch.Generator, device, one_worker: bool = False):
     n_valid[1::3] = L
     args = [t.to(device).contiguous() for t in
             floats + [w_idx, start, n_valid, s_lo, mask]]
-    return args, 4
+    if layout == "misaligned":
+        args[1:5] = [_misaligned(t, device) for t in floats[1:]]
+    return args, heads
+
+
+def plan_shapes() -> dict:
+    """(L, D, H) of the three configurations' and of the edge cases'
+    windows."""
+    shapes = {name: (L, D, 4) for name, (_, _, _, L, D, _) in SHAPES.items()}
+    shapes.update({name: (L, D, heads) for name, (_, _, _, _, L, D, heads, _)
+                   in EDGE_CASES.items()})
+    return shapes
 
 
 def bound_ms(args, backward: bool) -> tuple:
@@ -732,10 +778,23 @@ def main() -> int:
     phase("build", t, "; ".join(built))
 
     t = time.perf_counter()
+    plans = {NAMES[0]: wa.forward_plan, NAMES[1]: wa.backward_plan}
+    for name in NAMES:
+        line = f"{name}: " + "; ".join(
+            f"{r['function']} {r['registers']} registers, {r['spill_bytes']} "
+            f"bytes spilled, {r['static_smem']} bytes static smem"
+            for r in k[name].resources())
+        if name in plans:
+            planned = {shape: plans[name](*ldh)
+                       for shape, ldh in plan_shapes().items()}
+            fields = next(iter(planned.values()))._fields
+            line += f"; plans ({', '.join(fields)}) " + ", ".join(
+                f"{shape} {tuple(plan)}" for shape, plan in planned.items())
+        print(line, flush=True)
     gen = torch.Generator().manual_seed(0)
     edge = {}
-    for label, one_worker in (("edge case", False), ("one worker", True)):
-        args, heads = edge_inputs(gen, device, one_worker)
+    for label in EDGE_CASES:
+        args, heads = edge_inputs(gen, device, label)
         g = torch.randn(args[0].shape, generator=gen).to(device)
         edge[label] = check_all(k, args, g, heads, label)
         del args, g

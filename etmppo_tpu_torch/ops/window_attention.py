@@ -14,7 +14,11 @@ window is ``timeline[w_idx[b], start[b] : start[b] + n_valid[b]]`` followed by
 * Four wrappers of hand-written CUDA kernels, each with its plain version as
   ``plain``: ``WindowAttentionForward`` and ``WindowAttentionBackward``
   (``csrc/window_attention_fwd.cu``, ``csrc/window_attention_bwd.cu``: a CTA
-  per sample, the backward with fp32 atomics) and the grouped pair
+  per sample with all its heads, the window staged through a ring of row
+  tiles that TMA bulk copies fill (``csrc/window_ring.cuh``), the backward
+  adding into the tables with float4 atomics; ``forward_plan`` and
+  ``backward_plan`` choose their launch)
+  and the grouped pair
   ``WindowAttentionForwardGrouped`` and ``WindowAttentionBackwardGrouped``
   (``csrc/window_attention_fwd_grouped.cu``,
   ``csrc/window_attention_bwd_grouped.cu``: sorted by worker, the backward
@@ -35,11 +39,12 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -52,7 +57,13 @@ FWD_GROUPED_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_fwd_grouped.cu"
 BWD_GROUPED_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_bwd_grouped.cu"
 BUILD_DIR = _PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Launch limits of the per-sample kernels: shared memory a CTA may have on
+# sm_90 (227 KB), the most that lets two CTAs share an SM's 228 KB (each
+# holds 1 KB back), and the kernels' __launch_bounds__.
+SMEM_LIMIT = 232448
+SMEM_TWO_PER_SM = (233472 - 2 * 1024) // 2
+MAX_THREADS = 512
 
 
 def window_attention_plain(q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
@@ -171,6 +182,101 @@ def window_attention_grouped_bwd_plain(q, timeline_k, timeline_v, pe_k, pe_v,
                  zip((dq, dtk, dtv, dpk, dpv), needs_grad))
 
 
+# Tiles in the kernels' ring (kStages in csrc/window_ring.cuh) and the floats
+# before it that hold the ring's barriers (kBarFloats).
+RING_STAGES = 2
+RING_BAR_FLOATS = 8
+
+
+class ForwardPlan(NamedTuple):
+    """How ``csrc/window_attention_fwd.cu`` is launched: a CTA per sample with
+    a warp per head (``threads``), walking the window in tiles of
+    ``rows_per_tile`` rows in ``smem_bytes`` of dynamic shared memory. Passed
+    to the kernel as ints in this order; the kernel refuses a plan it cannot
+    run."""
+    rows_per_tile: int
+    threads: int
+    smem_bytes: int
+
+
+class BackwardPlan(NamedTuple):
+    """How ``csrc/window_attention_bwd.cu`` is launched: a CTA per sample with
+    ``warps_per_head`` warps for each head, walking the window in tiles of
+    ``rows_per_tile`` rows (each warp takes ``rows_per_tile //
+    warps_per_head`` of them) in ``smem_bytes`` of dynamic shared memory.
+    Passed to the kernel as ints in this order."""
+    rows_per_tile: int
+    warps_per_head: int
+    threads: int
+    smem_bytes: int
+
+
+def _ring_floats(D: int, rows: int) -> int:
+    """Floats of the ring's barriers and its K and V row tiles (rows padded
+    to a multiple of 4 floats, plus 4)."""
+    return RING_BAR_FLOATS + RING_STAGES * 2 * rows * ((D + 3) // 4 * 4 + 4)
+
+
+def forward_smem_bytes(D: int, rows: int) -> int:
+    """Dynamic shared memory of one forward CTA, as the kernel's
+    ``smem_floats`` counts it: the ring, q and the output sums."""
+    return 4 * (_ring_floats(D, rows) + (D + 3) // 4 * 4 + D)
+
+
+def backward_smem_bytes(L: int, D: int, H: int, rows: int, wph: int) -> int:
+    """Dynamic shared memory of one backward CTA: the ring, q and g, each
+    warp's sums A1 and A2, the scores and dp of every (head, row), and each
+    warp's running statistics."""
+    d4 = (D + 3) // 4 * 4
+    return 4 * (_ring_floats(D, rows) + 2 * d4 + 2 * wph * D + 2 * H * L
+                + 3 * H * wph)
+
+
+def _first_fit(rows_choices, smem_of, L: int, D: int, H: int):
+    """The first rows per tile whose shared memory lets two CTAs share an SM,
+    else the first that fits one CTA: (rows, bytes). Raises where none
+    fits."""
+    for limit in (SMEM_TWO_PER_SM, SMEM_LIMIT):
+        for rows in rows_choices:
+            smem = smem_of(rows)
+            if smem <= limit:
+                return rows, smem
+    raise ValueError(f"no launch plan fits L={L}, D={D}, H={H} into "
+                     f"{SMEM_LIMIT} bytes of shared memory")
+
+
+def _check_threads(threads: int, H: int) -> None:
+    if threads > MAX_THREADS:
+        raise ValueError(f"{H} heads need {threads} threads a CTA, over "
+                         f"{MAX_THREADS}")
+
+
+def forward_plan(L: int, D: int, H: int) -> ForwardPlan:
+    """The launch plan of ``csrc/window_attention_fwd.cu`` for a window of L
+    rows of width D over H heads: a warp per head and tiles of at most 8
+    rows, so that several small CTAs share an SM."""
+    threads = H * 32
+    _check_threads(threads, H)
+    rows, smem = _first_fit((8, 4, 2, 1), lambda r: forward_smem_bytes(D, r),
+                            L, D, H)
+    return ForwardPlan(rows, threads, smem)
+
+
+def backward_plan(L: int, D: int, H: int) -> BackwardPlan:
+    """The launch plan of ``csrc/window_attention_bwd.cu``. It does twice the
+    forward's work per row: about 8 warps a CTA (a power of 2 per head) and
+    tiles of at most 32 rows."""
+    wph = 1
+    while H * wph * 2 <= 8:
+        wph *= 2
+    threads = H * wph * 32
+    _check_threads(threads, H)
+    choices = [wph * r for r in (32, 16, 8, 4, 2, 1) if wph * r <= 32]
+    rows, smem = _first_fit(
+        choices, lambda r: backward_smem_bytes(L, D, H, r, wph), L, D, H)
+    return BackwardPlan(rows, wph, threads, smem)
+
+
 class _CudaKernel:
     """A CUDA source built by nvcc on first use into a shared library with a
     plain C interface, loaded with ctypes. Subclasses launch it on the current
@@ -178,6 +284,7 @@ class _CudaKernel:
 
     symbol = ""
     n_pointers = 0
+    n_ints = 7
 
     def __init__(self, source: Path, build_dir: Path = BUILD_DIR):
         self.source = Path(source)
@@ -186,14 +293,20 @@ class _CudaKernel:
         self._lib = None
 
     def library_path(self) -> Path:
+        """The library's path, keyed by the source, the headers it includes
+        from its own directory and nvcc's flags."""
+        text = self.source.read_bytes()
+        headers = re.findall(rb'#include "([^"]+)"', text)
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+            text + b"".join((self.source.parent / h.decode()).read_bytes()
+                            for h in headers)
+            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         return self.build_dir / f"{self.source.stem}_{digest}.so"
 
     def build(self) -> Path:
         """Compiles the source with nvcc unless a library built from the same
-        source and flags is already there. Returns the library's path."""
+        source and flags is already there, keeping nvcc's report (``-Xptxas
+        -v``) beside it. Returns the library's path."""
         out = self.library_path()
         if out.exists():
             return out
@@ -212,18 +325,39 @@ class _CudaKernel:
                 raise RuntimeError(
                     f"nvcc failed on {self.source.name} ({proc.returncode}):"
                     f"\n{proc.stdout}{proc.stderr}")
+            self._report_path(out).write_text(proc.stdout + proc.stderr)
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
         return out
 
+    @staticmethod
+    def _report_path(library: Path) -> Path:
+        return library.with_suffix(".ptxas.txt")
+
+    def resources(self) -> list:
+        """Registers, spills and static shared memory of each kernel function
+        in the built library, from nvcc's report: a list of dicts."""
+        text = self._report_path(self.build()).read_text()
+        found = []
+        for chunk in text.split("Compiling entry function")[1:]:
+            name = chunk.split("'")[1]
+            nums = lambda pattern: [int(x) for x in re.findall(pattern, chunk)]
+            regs = nums(r"Used (\d+) registers")
+            spills = nums(r"(\d+) bytes spill (?:stores|loads)")
+            smem = nums(r"(\d+) bytes smem")
+            found.append(dict(function=name, registers=regs[0] if regs else 0,
+                              spill_bytes=sum(spills),
+                              static_smem=smem[0] if smem else 0))
+        return found
+
     def _function(self):
         if self._lib is None:
             lib = ctypes.CDLL(str(self.build()))
             fn = getattr(lib, self.symbol)
             fn.argtypes = [ctypes.c_void_p] * self.n_pointers + [
-                ctypes.c_int] * 7 + [ctypes.c_void_p]
+                ctypes.c_int] * self.n_ints + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._lib = lib
         return getattr(self._lib, self.symbol)
@@ -238,10 +372,12 @@ class _CudaKernel:
 
 
 class WindowAttentionForward(_CudaKernel):
-    """The CUDA forward kernel, a CTA per (sample, head): out (B, D)."""
+    """The CUDA forward kernel, a CTA per sample with all its heads: out
+    (B, D). ``forward_plan`` chooses the launch."""
 
     symbol = "window_attention_fwd"
     n_pointers = 11
+    n_ints = 7 + len(ForwardPlan._fields)
     plain = staticmethod(window_attention_plain)
 
     def __init__(self, source: Path = FWD_SOURCE,
@@ -254,22 +390,26 @@ class WindowAttentionForward(_CudaKernel):
                   n_valid, s_lo, mask)
         B, D = _check_inputs(*inputs, num_heads)
         W, S, _ = timeline_k.shape
+        L = mask.shape[1]
+        plan = forward_plan(L, D, num_heads)
         out = torch.empty_like(q)
         self._launch([t.data_ptr() for t in inputs + (out,)],
-                     (B, W, S, pe_k.shape[0], mask.shape[1], D, num_heads),
+                     (B, W, S, pe_k.shape[0], L, D, num_heads, *plan),
                      q.device)
         return out
 
 
 class WindowAttentionBackward(_CudaKernel):
-    """The CUDA backward kernel, a CTA per (sample, head): (dq, dtk, dtv,
-    dpk, dpv) for the output gradient g. The gradient tables are zeroed on
-    the current stream, then the kernel adds into them with fp32 atomics, so
-    their last bits vary from run to run (``WindowAttentionBackwardGrouped``
-    is the deterministic alternative)."""
+    """The CUDA backward kernel, a CTA per sample with all its heads: (dq,
+    dtk, dtv, dpk, dpv) for the output gradient g. ``backward_plan`` chooses
+    the launch. The gradient tables are zeroed on the current stream, then
+    the kernel adds into them with float4 atomics, so their last bits vary
+    from run to run (``WindowAttentionBackwardGrouped`` is the deterministic
+    alternative)."""
 
     symbol = "window_attention_bwd"
     n_pointers = 16
+    n_ints = 7 + len(BackwardPlan._fields)
     plain = staticmethod(window_attention_bwd_plain)
 
     def __init__(self, source: Path = BWD_SOURCE,
@@ -283,11 +423,12 @@ class WindowAttentionBackward(_CudaKernel):
         B, D = _check_inputs(*inputs, num_heads)
         _check_grad(g, q)
         W, S, _ = timeline_k.shape
+        L = mask.shape[1]
+        plan = backward_plan(L, D, num_heads)
         dq = torch.empty_like(q)
-        grads = [torch.zeros_like(t) for t in
-                 (timeline_k, timeline_v, pe_k, pe_v)]
+        grads = _zeroed_like(timeline_k, timeline_v, pe_k, pe_v)
         self._launch([t.data_ptr() for t in inputs + (g, dq, *grads)],
-                     (B, W, S, pe_k.shape[0], mask.shape[1], D, num_heads),
+                     (B, W, S, pe_k.shape[0], L, D, num_heads, *plan),
                      q.device)
         return (dq, *grads)
 
@@ -371,6 +512,16 @@ class WindowAttentionBackwardGrouped(_CudaKernel):
                       inputs + (g, order, seg, *scratch, *grads)],
                      (B, W, S, P, L, D, num_heads), q.device)
         return tuple(grads)
+
+
+def _zeroed_like(*tensors) -> list:
+    """Zeroed float32 tensors shaped like ``tensors``: views of one buffer
+    that a single fill zeroes, each starting 16-byte aligned."""
+    sizes = [(t.numel() + 3) // 4 * 4 for t in tensors]
+    buf = torch.zeros(sum(sizes), dtype=torch.float32,
+                      device=tensors[0].device)
+    views = buf.split(sizes)
+    return [v[:t.numel()].view(t.shape) for v, t in zip(views, tensors)]
 
 
 def _check_inputs(q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
