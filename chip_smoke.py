@@ -13,8 +13,8 @@ Phases, each printing one line with its seconds:
                 started together (a library built from the same source is
                 reused).
 3. kernel:      prints each kernel's registers, spills and static shared
-                memory (nvcc's -Xptxas -v report) and the per-sample
-                kernels' launch plans. Holds each kernel against its plain
+                memory (nvcc's -Xptxas -v report) and the four kernels'
+                launch plans. Holds each kernel against its plain
                 PyTorch version, the grouped forward against the per-sample
                 one and the grouped backward against the per-sample one, at
                 the MiniGrid flagship shape (B=1024, W=16, S=672, P=96, L=64,
@@ -28,9 +28,12 @@ Phases, each printing one line with its seconds:
                 that is not a multiple of 4 (D=40, H=4, L=13), at a width
                 that is not (D=30, H=3) and with tables that are not
                 16-byte aligned (the last two take the per-sample kernels'
-                4-byte copies and scalar atomics); and a
-                minibatch all of one worker. Two calls of the grouped
-                backward must give the same bits. Times kernel, plain
+                4-byte copies and scalar atomics); a minibatch all of one
+                worker; and the grouped kernels' runs: all samples at one
+                start, a worker with three samples far apart, a worker of 13
+                samples. Two calls of the grouped backward must give the
+                same bits, and the grouped kernels' sort on the card must
+                be the stable (worker, start) sort. Times kernel, plain
                 version, a library yardstick (gather +
                 scaled_dot_product_attention, and for the backward autograd
                 through that graph) and the bound.
@@ -64,10 +67,12 @@ Phases, each printing one line with its seconds:
                 plain backward, the per-sample pair and the grouped pair
                 (mortarmayhem-split); and, from one state and batch, two
                 updates with each pair (determinism): the largest parameter
-                difference between the two, reported, not gated (cuDNN and
-                the timeline-gather backward may still differ in the last
-                bits), then again with PyTorch's deterministic algorithms
-                and cuDNN's deterministic mode on.
+                difference between the two, reported (cuDNN and the
+                timeline-gather backward may still differ in the last bits),
+                then again with PyTorch's deterministic algorithms and
+                cuDNN's deterministic mode on, where the grouped pair's two
+                updates must give the same bits; with the mean seconds of an
+                update in each setting.
 
 Then it prints the kernel table as one JSON line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result line.
@@ -189,15 +194,23 @@ def window_inputs(gen: torch.Generator, device, shape: str):
 # headroom_768.yaml's kernel shape (L=96, D=768, H=6, head width 128) at a
 # small batch; a head width that is not a multiple of 4 (D=40, H=4: 10); a
 # width that is not a multiple of 4 (D=30, H=3), where the per-sample kernels
-# take their 4-byte copies and the backward its scalar atomics; and the
+# take their 4-byte copies and the backward its scalar atomics; the
 # flagship's width with the timeline and PE tables as contiguous views that
-# start 4 bytes past a 16-byte boundary ("misaligned"), the same paths.
+# start 4 bytes past a 16-byte boundary ("misaligned"), the same paths; and
+# three cases of the grouped kernels' runs (8 sorted samples of one worker):
+# every sample of worker 1 at one start ("same start": runs of identical
+# windows), a worker with 3 samples whose windows lie far apart ("sparse
+# worker": a run whose union has gaps), and a minibatch of 61 with a worker
+# of 13 samples ("ragged segment": segments that are not a multiple of 8).
 EDGE_CASES = {"edge case": (64, 4, 80, 24, 16, 384, 4, "mixed"),
               "one worker": (64, 4, 80, 24, 16, 384, 4, "one worker"),
               "headroom_768": (48, 4, 240, 120, 96, 768, 6, "mixed"),
               "narrow heads": (64, 4, 40, 20, 13, 40, 4, "mixed"),
               "odd width": (64, 4, 40, 20, 13, 30, 3, "mixed"),
-              "misaligned tables": (64, 4, 80, 24, 16, 384, 4, "misaligned")}
+              "misaligned tables": (64, 4, 80, 24, 16, 384, 4, "misaligned"),
+              "same start": (64, 4, 80, 24, 16, 384, 4, "same start"),
+              "sparse worker": (64, 4, 200, 24, 16, 384, 4, "sparse worker"),
+              "ragged segment": (61, 4, 80, 24, 16, 384, 4, "ragged")}
 
 
 def _misaligned(t: torch.Tensor, device) -> torch.Tensor:
@@ -213,14 +226,25 @@ def _misaligned(t: torch.Tensor, device) -> torch.Tensor:
 def edge_inputs(gen: torch.Generator, device, case: str):
     """A case of EDGE_CASES. Each has all-masked rows, n_valid = 1 and
     n_valid = L, and a worker (the last) with no samples, except "one
-    worker", where every sample is worker 1's."""
+    worker" and "same start", where every sample is worker 1's, and "sparse
+    worker", where the last worker has three."""
     B, W, S, P, L, D, heads, layout = EDGE_CASES[case]
     floats = [torch.randn(shape, generator=gen) for shape in
               ((B, D), (W, S, D), (W, S, D), (P, D), (P, D))]
     w_idx = torch.randint(0, W - 1, (B,), generator=gen, dtype=torch.int32)
-    if layout == "one worker":
-        w_idx[:] = 1
     start = torch.randint(0, S - L + 1, (B,), generator=gen, dtype=torch.int32)
+    if layout in ("one worker", "same start"):
+        w_idx[:] = 1
+    if layout == "same start":
+        start[:] = (S - L) // 2
+    elif layout == "sparse worker":
+        w_idx[[5, 20, 40]] = W - 1
+        start[[5, 20, 40]] = torch.tensor([0, (S - L) // 2, S - L],
+                                          dtype=torch.int32)
+    elif layout == "ragged":
+        w_idx[:13] = 0
+        w_idx[13:] = torch.randint(1, W - 1, (B - 13,), generator=gen,
+                                   dtype=torch.int32)
     n_valid = torch.randint(1, L + 1, (B,), generator=gen, dtype=torch.int32)
     s_lo = torch.randint(0, P - L + 1, (B,), generator=gen, dtype=torch.int32)
     mask = torch.rand(B, L, generator=gen) < 0.7
@@ -349,12 +373,29 @@ def check_repeatable(kernel, args, g, num_heads: int, label: str) -> None:
                                f"{kernel.symbol} differ in {name}")
 
 
+def check_sort(fwd_g, args, label: str) -> None:
+    """The grouped kernels' sort on the card (their first launch, alone)
+    must give the order ``grouped_order`` states: the minibatch stably
+    sorted by (worker, start), with each worker's first sorted position."""
+    from etmppo_tpu_torch.ops.window_attention import grouped_order
+    w_idx, start, n_valid, s_lo = args[5:9]
+    W = args[1].shape[0]
+    meta, seg = fwd_g.sort(w_idx, start, n_valid, s_lo, W)
+    order, seg_ref = grouped_order(w_idx.cpu(), start.cpu(), W)
+    fields = torch.stack([order.int()] + [t.cpu()[order] for t in
+                                          (w_idx, start, n_valid, s_lo)])
+    if not (torch.equal(meta.cpu(), fields)
+            and torch.equal(seg.cpu().long(), seg_ref)):
+        raise RuntimeError(f"sort, {label}: the grouped kernels' order is "
+                           "not the stable (worker, start) sort")
+
+
 def check_all(k, args, g, num_heads: int, label: str) -> dict:
     """Every kernel against its plain version; the grouped forward against
     the per-sample forward, the grouped backward against the per-sample
-    backward, and the grouped backward against itself. Returns the largest
-    error of each kernel, and each backward's largest share of its
-    tolerance."""
+    backward, and the grouped backward against itself; the grouped kernels'
+    sort against its statement. Returns the largest error of each kernel,
+    and each backward's largest share of its tolerance."""
     fwd, bwd, fwd_g, bwd_g = (k[n] for n in NAMES)
     errs, shares = {}, {}
     errs[fwd.symbol] = check_forward(fwd, fwd.plain, args, num_heads, label)
@@ -372,6 +413,7 @@ def check_all(k, args, g, num_heads: int, label: str) -> dict:
     errs[bwd_g.symbol] = max(c[0] for c in checks)
     shares[bwd_g.symbol] = max(c[1] for c in checks)
     check_repeatable(bwd_g, args, g, num_heads, label)
+    check_sort(fwd_g, args, label)
     return {name: dict(max_abs_err=errs[name],
                        **({"tol_share": shares[name]} if name in shares
                           else {})) for name in errs}
@@ -617,12 +659,13 @@ def run_mysterypath(device, k) -> list:
     return launches
 
 
-def update_drift(trainer, batch, pair, deterministic: bool = False) -> float:
+def update_drift(trainer, batch, pair, deterministic: bool = False) -> tuple:
     """Two PPO updates with the (forward, backward) ``pair`` from one state,
     on one batch and one set of permutations: the largest difference of a
-    parameter between the two. With ``deterministic``, PyTorch's own
-    operations run with ``torch.use_deterministic_algorithms`` (warn only)
-    and ``cudnn.deterministic``, so that what is left comes from the
+    parameter between the two, and the mean wall seconds of an update. With
+    ``deterministic``, PyTorch's own operations run with
+    ``torch.use_deterministic_algorithms`` (warn only) and
+    ``cudnn.deterministic``, so that what is left comes from the
     window-attention kernels."""
     flags = (torch.are_deterministic_algorithms_enabled(),
              torch.backends.cudnn.deterministic)
@@ -639,18 +682,23 @@ def update_drift(trainer, batch, pair, deterministic: bool = False) -> float:
                          for _ in range(cfg.epochs)])
     kept = upd.kernel, upd.backward_kernel
     upd.kernel, upd.backward_kernel = pair
-    after = []
+    after, seconds = [], []
     for _ in range(2):
         trainer.model.load_state_dict(model_state)
         upd.optimizer.load_state_dict(copy.deepcopy(opt_state))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         upd(batch, 1e-4, 0.1, 0.001, perms=perms)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
         after.append([p.detach().clone() for p in trainer.model.parameters()])
     upd.kernel, upd.backward_kernel = kept
     trainer.model.load_state_dict(model_state)
     upd.optimizer.load_state_dict(opt_state)
     torch.use_deterministic_algorithms(flags[0], warn_only=True)
     torch.backends.cudnn.deterministic = flags[1]
-    return max((a - b).abs().max().item() for a, b in zip(*after))
+    drift = max((a - b).abs().max().item() for a, b in zip(*after))
+    return drift, sum(seconds) / len(seconds)
 
 
 def run_mortarmayhem(device, k) -> list:
@@ -735,11 +783,19 @@ def run_mortarmayhem(device, k) -> list:
             phase("determinism", t,
                   "largest parameter difference between two PPO updates "
                   "from one state and batch: " + ", ".join(
-                      f"{name} {d:.3e}" for (name, det), d in drift.items()
-                      if not det) + "; with PyTorch's deterministic "
-                  "algorithms: " + ", ".join(
-                      f"{name} {d:.3e}" for (name, det), d in drift.items()
-                      if det))
+                      f"{name} {d:.3e}" for (name, det), (d, _)
+                      in drift.items() if not det)
+                  + "; with PyTorch's deterministic algorithms: " + ", ".join(
+                      f"{name} {d:.3e}" for (name, det), (d, _)
+                      in drift.items() if det)
+                  + "; mean s per update, deterministic algorithms off / on: "
+                  + ", ".join(f"{name} {drift[name, False][1]:.3f} / "
+                              f"{drift[name, True][1]:.3f}"
+                              for name in ("per-sample pair",
+                                           "grouped pair")))
+            if drift["grouped pair", True][0] != 0.0:
+                raise RuntimeError("determinism: two grouped-pair PPO updates "
+                                   "with deterministic algorithms differ")
         finally:
             trainer.close()
     return launches
@@ -778,7 +834,9 @@ def main() -> int:
     phase("build", t, "; ".join(built))
 
     t = time.perf_counter()
-    plans = {NAMES[0]: wa.forward_plan, NAMES[1]: wa.backward_plan}
+    plans = {NAMES[0]: wa.forward_plan, NAMES[1]: wa.backward_plan,
+             NAMES[2]: wa.grouped_forward_plan,
+             NAMES[3]: wa.grouped_backward_plan}
     for name in NAMES:
         line = f"{name}: " + "; ".join(
             f"{r['function']} {r['registers']} registers, {r['spill_bytes']} "

@@ -13,267 +13,207 @@
 // uniform), the 1/sqrt(D) scale of the whole embedding, and reads clamped to
 // the tables.
 //
-// The minibatch comes sorted by worker: `order` is a stable argsort of w_idx
-// and `w_sorted` = w_idx[order] (the wrapper sorts, as the TPU wrapper does
-// outside its kernel). The kernel reads each sample through `order` and
-// writes its output straight back to row order[j], so no sorted copy of the
-// inputs or the output is made.
+// What bounds it on an H100: bytes. The per-sample kernel reads every window
+// row once per sample that holds it, 2*B*L*D*4 B per call (201 / 403 / 742 MB
+// at the flagship / Mystery Path Grid / Mortar Mayhem Grid shapes), from L2.
+// Here the minibatch is sorted by (worker, start) (window_runs.cuh), so R
+// consecutive sorted samples of one worker, about 8 rows apart in a random
+// eighth of a rollout, have windows that overlap almost entirely. A CTA takes
+// such a run with all its heads and stages the union of the run's window
+// rows once: about 7 * 8 + L rows instead of R * L, some 47 / 80 / 137 MB a
+// call. Each staged row then serves every sample of the run.
 //
-// What bounds it on an H100: bytes. The per-sample kernel reads L rows of K
-// and V per (sample, head), 2*B*L*D*4 B in all (742 MB at the Mortar Mayhem
-// shape B=2048, L=118, D=384), mostly from L2. The TPU kernel stages a
-// worker's whole timeline in VMEM once; here one worker's timeline (S=750
-// rows x 384 x 4 B = 1.15 MB for K alone) is far over the 227 KB of shared
-// memory a CTA can hold. So the staging unit is smaller: one CTA per (chunk of
-// kRun consecutive sorted samples, head), one warp per sample. The chunk is
-// cut where the worker changes into runs of one worker; for each run the CTA
-// walks the union of the run's window rows in tiles of kTile rows, first in
-// the timeline, then in the PE table, copies each tile of K (then of V) into
-// shared memory once, and every sample of the run whose window meets the tile
-// reads it there. A tile that no window of the run meets is skipped.
+// The design:
+// * A sort kernel ranks the minibatch by (worker, start, row) on the card
+//   (window_runs.cuh) and writes the sorted samples' fields; no host sync,
+//   no library sort. Then a CTA per run (ceil(B / R) + W CTAs, those without
+//   a run exit) lists the tiles of its union, timeline rows of its worker
+//   then PE rows, skipping tiles no window meets, and streams them through
+//   the ring of window_ring.cuh in range mode (TMA bulk copies of full
+//   D-wide rows on mbarriers; 4-byte cp.async where rows are not 16-byte
+//   aligned).
+// * A warp takes one head of four samples: 8 lanes a sample, each lane DPL =
+//   head width / 8 dims of q and of the output in registers. Per staged row
+//   the four samples read the same row in the common case, so a float4 read
+//   of shared memory serves four lanes at once.
+// * Each sample walks the window rows l of each tile in order (clamped rows
+//   repeat where a window runs past its table, as in the per-sample kernel)
+//   in chunks of 8: every lane forms its share of the 8 rows' dot products,
+//   and one reduce-scatter (7 shuffles) leaves row r's score in the sample's
+//   lane r, which alone scales, masks and exponentiates it. An online
+//   softmax in base 2 (a running max m, each lane's share of l, the output
+//   o, rescaled when m grows) then folds the chunk's V rows into o, the
+//   weights broadcast from their lanes.
+// * Each tile's K rows, and its V rows, are one contiguous block of their
+//   table, one bulk copy each. The plan takes tiles of 16 rows two deep
+//   where two CTAs still share an SM (at D = 256 and 384), else of 8 rows
+//   four or two deep: a run's rows come mostly from HBM, not from L2 as the
+//   per-sample kernel's do, so copies must be in flight while a tile is used.
+// * The output goes straight to row b of `out`: no sorted copy of the inputs
+//   or the output is made.
 //
-// Scores: a lane per window row, dotting the sample's query (shared memory,
-// broadcast) with the tile row (row stride hd + 1 floats, so the lanes' rows
-// fall in different banks). Softmax: the warp over the sample's L scores.
-// Output: a lane per head dim (up to kMaxDimsPerLane per lane), summing
-// p[l] * V[l] over the rows in registers.
-//
-// Built by nvcc into a shared library with a plain C interface and loaded with
-// ctypes (etmppo_tpu_torch/ops/window_attention.py).
+// The launch plan (samples per run, rows per tile, threads, shared memory)
+// is chosen by the wrapper (etmppo_tpu_torch/ops/window_attention.py,
+// `grouped_forward_plan`) and checked here. Built by nvcc into a shared
+// library with a plain C interface and loaded with ctypes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "window_ring.cuh"
+#include "window_runs.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRun = kWarps;          // sorted samples per CTA, a warp each
-constexpr int kTile = 64;             // rows per staged tile
-constexpr int kMaxDimsPerLane = 8;    // head width up to 256
-constexpr float kMaskFill = -1e20f;
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// Shared memory of one CTA, in bytes: the ring's barriers and the ring, the
+// run's ints, and the run's mask rows.
+__host__ __device__ inline size_t fwd_grouped_smem(int L, int D, int R, int rows, int depth) {
+  return (kBarFloats + range_ring_floats(D, rows, depth)) * sizeof(float) +
+         run_ints(R, L, rows) * sizeof(int) + (((size_t)R * L + 15) & ~(size_t)15);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+template <int DPL, bool VEC, int DEPTH>
+__global__ void __launch_bounds__(kMaxThreads) window_attention_fwd_grouped_kernel(
+    const float* __restrict__ q, const float* __restrict__ tk,
+    const float* __restrict__ tv, const float* __restrict__ pe_k,
+    const float* __restrict__ pe_v, const uint8_t* __restrict__ mask,
+    const int32_t* __restrict__ meta, const int32_t* __restrict__ seg,
+    float* __restrict__ out, int B, int W, int S, int P, int L, int D, int H, int R,
+    int rows, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring_buf = smem + kBarFloats;
+  int* ints = reinterpret_cast<int*>(ring_buf + range_ring_floats(D, rows, DEPTH));
+  uint8_t* mk = reinterpret_cast<uint8_t*>(ints + run_ints(R, L, rows));   // [R][L]
+  const Run run = Run::at(ints, R);
+  if (!run_setup(run, blockIdx.x, meta, seg, B, W, S, P, L, R, rows)) return;
+  const int w = run.head[0], n = run.head[2];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
+  for (int i = warp; i < n; i += n_warps)  // the run's mask rows, a warp per row
+    for (int l = lane; l < L; l += 32) mk[i * L + l] = mask[(size_t)run.b[i] * L + l];
+  const RangeRing<DEPTH> ring{tk + (size_t)w * S * D, tv + (size_t)w * S * D, pe_k, pe_v,
+                              run.tiles, run.head[3], run.head[4], run.head[5], run.head[6],
+                              D, rows, vec != 0, reinterpret_cast<uint64_t*>(smem), ring_buf};
+  ring.start();  // its block-wide barrier also publishes the mask rows
+
+  const int wph = R / 4;                          // warps per head
+  const int h = warp / wph;
+  const int si = (warp - h * wph) * 4 + lane / kLanes;   // sample of the run
+  const int part = lane & (kLanes - 1);
+  const bool has = si < n;
+  const int hd = D / H;
+  const int col = h * hd + part * DPL;            // this lane's first dim
+  const int valid = min(DPL, hd - part * DPL);    // its dims inside the head
+  const int stride = D;                           // floats between staged rows
+  // Scores in base 2: s * log2(e) / sqrt(D), so that 2^(s2 - m2) = e^(s - m).
+  const float scale2 = kLog2e / sqrtf((float)D);
+  const float fill2 = kMaskFill * scale2;
+  const int b = has ? run.b[si] : 0;
+  const Span tl = has ? run.timeline(si, S) : Span{0, 0, 0, S};
+  const Span pe = has ? run.pe(si, L, P) : Span{0, 0, 0, P};
+  const uint8_t* mrow = mk + (size_t)(has ? si : 0) * L;
+
+  float qr[DPL], o[DPL];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// The window rows [la, lb) of one sample that come from one table (the
-// timeline: [0, n_valid); the PE table: [n_valid, L)), and where row l lies in
-// that table: clamp(base + l, 0, n - 1), as the per-sample kernel reads it.
-struct Span {
-  int base, la, lb, n;
-
-  __device__ __forceinline__ int row(int l) const {
-    return min(max(base + l, 0), n - 1);
+  for (int i = 0; i < DPL; ++i) {
+    qr[i] = has && i < valid ? q[(size_t)b * D + col + i] : 0.f;
+    o[i] = 0.f;
   }
-  // The first l in [la, lb) whose row is >= x (lb if none); rows grow with l.
-  __device__ __forceinline__ int first_at(int x) const {
-    if (x <= 0) return la;
-    if (x > n - 1) return lb;
-    return min(max(x - base, la), lb);
+  float m = -INFINITY, l_part = 0.f;   // the running max; this lane's rows' share of l
+
+  const int n_first = run.head[3];
+  for (int t = 0; t < ring.n_tiles(); ++t) {
+    const float* kt = ring.acquire(t) + col;
+    const float* vt = kt + (size_t)rows * stride;
+    const int r0 = run.tiles[t], r1 = r0 + ring.tile_n(t);
+    const Span sp = t < n_first ? tl : pe;
+    const int la = sp.first_at(r0), cnt = sp.first_at(r1) - la;
+    const int most = warp_max_int(cnt);
+
+    for (int i0 = 0; i0 < most; i0 += kLanes) {
+      // Rows i0 .. i0 + 7 of the sample's part of the tile (past its end:
+      // the tile's first row, weight 0).
+      int off[kLanes];
+      float v[kLanes];
+#pragma unroll
+      for (int r = 0; r < kLanes; ++r) {
+        off[r] = i0 + r < cnt ? (sp.row(la + i0 + r) - r0) * stride : 0;
+        v[r] = dot_part<DPL, VEC>(kt + off[r], qr, valid);
+      }
+      const float s = scatter8(v, part);       // the score of row i0 + part
+      const int i = i0 + part;
+      const float s2 = i < cnt ? (mrow[la + i] ? s * scale2 : fill2) : -INFINITY;
+      float u;
+      const float alpha = online_step(m, s2, u);
+      l_part = fmaf(l_part, alpha, u);
+#pragma unroll
+      for (int k = 0; k < DPL; ++k) o[k] *= alpha;
+#pragma unroll
+      for (int r = 0; r < kLanes; ++r)
+        axpy_part<DPL, VEC>(__shfl_sync(kFull, u, r, kLanes), vt + off[r], o, valid);
+    }
+    __syncthreads();  // frees the stage for a later tile
+  }
+  const float inv = 1.f / sum8(l_part);
+  if (has) {
+#pragma unroll
+    for (int i = 0; i < DPL; ++i)
+      if (i < valid) out[(size_t)b * D + col + i] = o[i] * inv;
+  }
+}
+
+struct FwdInstances {
+  using Fn = void (*)(const float*, const float*, const float*, const float*, const float*,
+                      const uint8_t*, const int32_t*, const int32_t*, float*, int, int, int, int,
+                      int, int, int, int, int, int);
+  template <int DPL, bool VEC, int DEPTH>
+  static Fn get() {
+    return window_attention_fwd_grouped_kernel<DPL, VEC, DEPTH>;
   }
 };
 
-__global__ void __launch_bounds__(kThreads) window_attention_fwd_grouped_kernel(
-    const float* __restrict__ q, const float* __restrict__ tk,
-    const float* __restrict__ tv, const float* __restrict__ pe_k,
-    const float* __restrict__ pe_v, const int32_t* __restrict__ start,
-    const int32_t* __restrict__ n_valid, const int32_t* __restrict__ s_lo,
-    const uint8_t* __restrict__ mask, const int64_t* __restrict__ order,
-    const int32_t* __restrict__ w_sorted, float* __restrict__ out, int B,
-    int W, int S, int P, int L, int D, int H) {
-  extern __shared__ float smem[];
-  const int hd = D / H;
-  const int stride = hd + 1;
-  float* qs = smem;                    // [kRun][hd]   queries
-  float* ps = qs + kRun * hd;          // [kRun][L]    scores, then probs
-  float* tile = ps + kRun * L;         // [kTile][hd + 1]
-  __shared__ int s_w[kRun];            // raw worker of each sample
-  __shared__ int s_union[4];           // timeline lo/hi, PE lo/hi of the run
-
-  const int h = blockIdx.y;
-  const int col = h * hd;
-  const int c0 = blockIdx.x * kRun;
-  const int c1 = min(B, c0 + kRun);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int j = c0 + warp;             // this warp's sorted sample
-  const bool has_sample = j < c1;
-
-  int b = 0;
-  Span tl{0, 0, 0, S}, pe{0, 0, 0, P};
-  if (has_sample) {
-    b = (int)order[j];
-    const int nv = min(max((int)n_valid[b], 0), L);
-    tl = Span{(int)start[b], 0, nv, S};
-    pe = Span{(int)s_lo[b], nv, L, P};
-    for (int d = lane; d < hd; d += 32) qs[warp * hd + d] = q[(size_t)b * D + col + d];
-    if (lane == 0) s_w[warp] = w_sorted[j];
-  }
-  __syncthreads();
-
-  const float sqrt_d = sqrtf((float)D);
-  float* my_ps = ps + warp * L;
-  const float* my_q = qs + warp * hd;
-
-  for (int i0 = c0; i0 < c1;) {
-    // The run [i0, i1) of one worker.
-    const int w_raw = s_w[i0 - c0];
-    int i1 = i0 + 1;
-    while (i1 < c1 && s_w[i1 - c0] == w_raw) ++i1;
-    const int w = min(max(w_raw, 0), W - 1);
-    const bool mine = has_sample && j >= i0 && j < i1;
-
-    // The union of the run's rows in each table.
-    if (threadIdx.x == 0) {
-      s_union[0] = S; s_union[1] = 0; s_union[2] = P; s_union[3] = 0;
-    }
-    __syncthreads();
-    if (mine && lane == 0) {
-      if (tl.la < tl.lb) {
-        atomicMin(&s_union[0], tl.row(tl.la));
-        atomicMax(&s_union[1], tl.row(tl.lb - 1) + 1);
-      }
-      if (pe.la < pe.lb) {
-        atomicMin(&s_union[2], pe.row(pe.la));
-        atomicMax(&s_union[3], pe.row(pe.lb - 1) + 1);
-      }
-    }
-    __syncthreads();
-    const int u_lo[2] = {s_union[0], s_union[2]};
-    const int u_hi[2] = {s_union[1], s_union[3]};
-
-    // Scores, tile by tile: timeline (src 0), then PE table (src 1).
-    for (int src = 0; src < 2; ++src) {
-      const Span& sp = src == 0 ? tl : pe;
-      const float* table = src == 0 ? tk + (size_t)w * S * D : pe_k;
-      for (int t0 = u_lo[src]; t0 < u_hi[src]; t0 += kTile) {
-        const int rows = min(kTile, u_hi[src] - t0);
-        const int la = mine ? sp.first_at(t0) : 0;
-        const int lb = mine ? sp.first_at(t0 + rows) : 0;
-        if (!__syncthreads_or(la < lb)) continue;
-        for (int e = threadIdx.x; e < rows * hd; e += kThreads) {
-          const int r = e / hd;
-          const int d = e - r * hd;
-          tile[r * stride + d] = __ldg(table + (size_t)(t0 + r) * D + col + d);
-        }
-        __syncthreads();
-        for (int l = la + lane; l < lb; l += 32) {
-          const float* k = tile + (sp.row(l) - t0) * stride;
-          float acc = 0.f;
-          for (int d = 0; d < hd; ++d) acc = fmaf(my_q[d], k[d], acc);
-          my_ps[l] = acc;
-        }
-        __syncthreads();
-      }
-    }
-
-    // Softmax over the sample's L scores, after the mask fill and the scale.
-    if (mine) {
-      const uint8_t* mrow = mask + (size_t)b * L;
-      float m = -INFINITY;
-      for (int l = lane; l < L; l += 32) {
-        const float s = (mrow[l] ? my_ps[l] : kMaskFill) / sqrt_d;
-        my_ps[l] = s;
-        m = fmaxf(m, s);
-      }
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int l = lane; l < L; l += 32) {
-        const float e = expf(my_ps[l] - m);
-        my_ps[l] = e;
-        sum += e;
-      }
-      const float inv = 1.f / warp_sum(sum);
-      for (int l = lane; l < L; l += 32) my_ps[l] *= inv;
-      __syncwarp();
-    }
-
-    // out = sum_l p[l] V[l], tile by tile, in registers.
-    float acc[kMaxDimsPerLane];
-#pragma unroll
-    for (int k = 0; k < kMaxDimsPerLane; ++k) acc[k] = 0.f;
-    for (int src = 0; src < 2; ++src) {
-      const Span& sp = src == 0 ? tl : pe;
-      const float* table = src == 0 ? tv + (size_t)w * S * D : pe_v;
-      for (int t0 = u_lo[src]; t0 < u_hi[src]; t0 += kTile) {
-        const int rows = min(kTile, u_hi[src] - t0);
-        const int la = mine ? sp.first_at(t0) : 0;
-        const int lb = mine ? sp.first_at(t0 + rows) : 0;
-        if (!__syncthreads_or(la < lb)) continue;
-        for (int e = threadIdx.x; e < rows * hd; e += kThreads) {
-          const int r = e / hd;
-          const int d = e - r * hd;
-          tile[r * stride + d] = __ldg(table + (size_t)(t0 + r) * D + col + d);
-        }
-        __syncthreads();
-        for (int l = la; l < lb; ++l) {
-          const float p = my_ps[l];
-          const float* v = tile + (sp.row(l) - t0) * stride;
-#pragma unroll
-          for (int k = 0; k < kMaxDimsPerLane; ++k) {
-            const int d = lane + 32 * k;
-            if (d < hd) acc[k] = fmaf(p, v[d], acc[k]);
-          }
-        }
-        __syncthreads();
-      }
-    }
-    if (mine) {
-#pragma unroll
-      for (int k = 0; k < kMaxDimsPerLane; ++k) {
-        const int d = lane + 32 * k;
-        if (d < hd) out[(size_t)b * D + col + d] = acc[k];
-      }
-    }
-    i0 = i1;
-    __syncthreads();  // s_union is reset for the next run
-  }
-}
-
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// Pointers are device pointers to contiguous arrays:
+// The sort alone, for checks of the order on the card: meta [5][B] and seg
+// [W + 1] as window_runs.cuh describes them.
+extern "C" int window_attention_grouped_sort(const void* w_idx, const void* start,
+                                             const void* n_valid, const void* s_lo, void* meta,
+                                             void* seg, int B, int W, void* stream) {
+  if (B <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_grouped_sort(w_idx, start, n_valid, s_lo, B, W, meta, seg,
+                                  (cudaStream_t)stream);
+}
+
+// Launches the sort and the kernel on `stream` and returns the first launch
+// error (0 = launched), or cudaErrorInvalidValue for shapes or a plan the
+// kernel cannot run. Pointers are device pointers to contiguous arrays:
 //   q (B, D), tk/tv (W, S, D), pe_k/pe_v (P, D), out (B, D): float32;
 //   w_idx/start/n_valid/s_lo (B,): int32; mask (B, L): uint8 (0/1);
-//   order (B,): int64, a stable argsort of w_idx; w_sorted (B,): int32,
-//   w_idx[order].
-// w_idx itself is not read (w_sorted holds it in sorted order); it is in the
-// signature so that the grouped and per-sample forwards take the same inputs.
+//   scratch meta (5, B) and seg (W + 1,): int32.
+// The plan: R samples per run (4 or 8), `rows` table rows per tile, a ring
+// of `depth` tiles (2 or 4), `threads` = H * R * 8, and `smem` bytes of
+// dynamic shared memory, which must be what the plan needs.
 extern "C" int window_attention_fwd_grouped(
     const void* q, const void* tk, const void* tv, const void* pe_k,
     const void* pe_v, const void* w_idx, const void* start,
-    const void* n_valid, const void* s_lo, const void* mask, const void* order,
-    const void* w_sorted, void* out, int B, int W, int S, int P, int L, int D,
-    int H, void* stream) {
-  (void)w_idx;
-  if (B <= 0 || W <= 0 || S <= 0 || P <= 0 || L <= 0 || H <= 0 || D % H != 0 ||
-      D / H > 32 * kMaxDimsPerLane)
+    const void* n_valid, const void* s_lo, const void* mask, void* meta,
+    void* seg, void* out, int B, int W, int S, int P, int L, int D,
+    int H, int R, int rows, int depth, int threads, int smem, void* stream) {
+  if (B <= 0 || W <= 0 || S <= 0 || P <= 0 || L <= 0 || H <= 0 || D % H != 0)
     return (int)cudaErrorInvalidValue;
-  const int hd = D / H;
-  const size_t smem =
-      (size_t)(kRun * hd + kRun * L + kTile * (hd + 1)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        window_attention_fwd_grouped_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((unsigned)((B + kRun - 1) / kRun), (unsigned)H);
-  window_attention_fwd_grouped_kernel<<<grid, kThreads, smem,
-                                        (cudaStream_t)stream>>>(
+  if ((R != 4 && R != 8) || rows < 1 || rows > 32 || threads != H * R * 8 ||
+      threads > kMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  const size_t need = fwd_grouped_smem(L, D, R, rows, depth);
+  if (smem < 0 || (size_t)smem != need || need > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const FwdInstances::Fn kernel = pick_instance<FwdInstances>(D / H, depth);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const bool vec = D % 4 == 0 && aligned16(tk) && aligned16(tv) && aligned16(pe_k) &&
+                   aligned16(pe_v);
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_grouped_sort(w_idx, start, n_valid, s_lo, B, W, meta, seg, s);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(B + R - 1) / R + W, threads, need, s>>>(
       (const float*)q, (const float*)tk, (const float*)tv, (const float*)pe_k,
-      (const float*)pe_v, (const int32_t*)start, (const int32_t*)n_valid,
-      (const int32_t*)s_lo, (const uint8_t*)mask, (const int64_t*)order,
-      (const int32_t*)w_sorted, (float*)out, B, W, S, P, L, D, H);
+      (const float*)pe_v, (const uint8_t*)mask, (const int32_t*)meta, (const int32_t*)seg,
+      (float*)out, B, W, S, P, L, D, H, R, rows, vec);
   return (int)cudaGetLastError();
 }

@@ -21,10 +21,15 @@ window is ``timeline[w_idx[b], start[b] : start[b] + n_valid[b]]`` followed by
   and the grouped pair
   ``WindowAttentionForwardGrouped`` and ``WindowAttentionBackwardGrouped``
   (``csrc/window_attention_fwd_grouped.cu``,
-  ``csrc/window_attention_bwd_grouped.cu``: sorted by worker, the backward
-  free of atomics and bit-for-bit repeatable). nvcc builds each at first use
-  into a shared library with a plain C interface, loaded with ctypes; each
-  keeps a count of its launches.
+  ``csrc/window_attention_bwd_grouped.cu``: the minibatch sorted by (worker,
+  start) on the card, a CTA per run of sorted samples of one worker staging
+  the union of their windows once through the same ring in range mode
+  (``csrc/window_runs.cuh``); the backward free of atomics and bit-for-bit
+  repeatable; ``grouped_forward_plan`` and ``grouped_backward_plan`` choose
+  their launch, and ``grouped_order``, ``grouped_runs``, ``run_tiles`` and
+  ``reduce_candidates`` state their walk in Python for the CPU tests). nvcc
+  builds each at first use into a shared library with a plain C interface,
+  loaded with ctypes; each keeps a count of its launches.
 * ``window_attention`` is the autograd op. The caller picks the forward
   (``kernel``) and the backward (``backward_kernel``) per call, which mirrors
   the JAX package's ``GROUPED_MODE`` and ``BACKWARD_MODE`` switches: the
@@ -36,6 +41,7 @@ window is ``timeline[w_idx[b], start[b] : start[b] + n_valid[b]]`` followed by
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -233,9 +239,9 @@ def backward_smem_bytes(L: int, D: int, H: int, rows: int, wph: int) -> int:
 
 
 def _first_fit(rows_choices, smem_of, L: int, D: int, H: int):
-    """The first rows per tile whose shared memory lets two CTAs share an SM,
-    else the first that fits one CTA: (rows, bytes). Raises where none
-    fits."""
+    """The first choice of tile (rows per tile, or for the grouped kernels
+    (rows, ring depth)) whose shared memory lets two CTAs share an SM, else
+    the first that fits one CTA: (choice, bytes). Raises where none fits."""
     for limit in (SMEM_TWO_PER_SM, SMEM_LIMIT):
         for rows in rows_choices:
             smem = smem_of(rows)
@@ -275,6 +281,191 @@ def backward_plan(L: int, D: int, H: int) -> BackwardPlan:
     rows, smem = _first_fit(
         choices, lambda r: backward_smem_bytes(L, D, H, r, wph), L, D, H)
     return BackwardPlan(rows, wph, threads, smem)
+
+
+# The grouped kernels' runs (csrc/window_runs.cuh): ints of a run's head and
+# fields per sample in shared memory, and the table rows per CTA of the
+# backward's pass 2 (kRows in csrc/window_attention_bwd_grouped.cu).
+RUN_HEAD = 8
+RUN_FIELDS = 5
+REDUCE_ROWS = 8
+
+
+class GroupedPlan(NamedTuple):
+    """How a grouped kernel (``csrc/window_attention_fwd_grouped.cu``, pass 1
+    of ``csrc/window_attention_bwd_grouped.cu``) is launched: a CTA per run
+    of up to ``samples_per_run`` sorted samples of one worker, a warp per
+    head and four samples (``threads`` = 8 * H * samples_per_run), the
+    union of the run's windows staged in tiles of ``rows_per_tile`` table
+    rows through a ring of ``ring_depth`` tiles in ``smem_bytes`` of dynamic
+    shared memory. Passed to the kernel as ints in this order; the kernel
+    refuses a plan it cannot run."""
+    samples_per_run: int
+    rows_per_tile: int
+    ring_depth: int
+    threads: int
+    smem_bytes: int
+
+
+def _run_ints(R: int, L: int, rows: int) -> int:
+    """Ints of a run's setup: the head, R samples' fields, and the tile list
+    (a window of L rows meets at most ceil(L / rows) + 1 tiles of a table)."""
+    return RUN_HEAD + RUN_FIELDS * R + 2 * R * (-(-L // rows) + 1)
+
+
+def grouped_forward_smem_bytes(L: int, D: int, R: int, rows: int,
+                               depth: int) -> int:
+    """Dynamic shared memory of one grouped forward CTA, as the kernel's
+    ``fwd_grouped_smem`` counts it: the ring's barriers and its ``depth``
+    tiles of K and V rows (D floats apart, as in their tables), the run's
+    ints and its mask rows (padded to 16 bytes)."""
+    ring = RING_BAR_FLOATS + depth * 2 * rows * D
+    return 4 * ring + 4 * _run_ints(R, L, rows) + (R * L + 15) // 16 * 16
+
+
+def grouped_backward_smem_bytes(L: int, D: int, H: int, R: int, rows: int,
+                                depth: int) -> int:
+    """Dynamic shared memory of one CTA of the grouped backward's first
+    pass (``bwd_grouped_smem``): the forward's, q and g of the run's samples
+    (rows padded as the ring's), the scores and dp' of every (sample, head,
+    row), and (m, Z, C/Z) of every (sample, head)."""
+    return (grouped_forward_smem_bytes(L, D, R, rows, depth)
+            + 4 * (2 * R * ((D + 3) // 4 * 4 + 4) + R * H * (2 * L + 3)))
+
+
+# (rows per tile, ring depth) in the order the grouped plans try them: tiles
+# of whole chunks of 8 rows (the kernels walk 8 rows at a time); 16-row
+# tiles two deep where two CTAs still share an SM (half the block-wide
+# barriers of 8-row tiles: 3-8% faster on the card), else 8-row tiles four
+# or two deep (the kernels take depths 2 and 4).
+GROUPED_TILES = ((16, 2), (8, 4), (8, 2))
+# The widest head the grouped kernels take (kMaxHeadWidth in
+# csrc/window_runs.cuh; every shipped configuration's is 64 to 128).
+GROUPED_MAX_HEAD_WIDTH = 128
+
+
+def _grouped_plan(L: int, D: int, H: int, smem_of) -> GroupedPlan:
+    """smem_of(R, rows, depth) is the kernel's shared memory in bytes. Runs
+    of 8 samples where a CTA of a warp per (head, four samples)
+    stays within the thread limit, else of 4; the first (rows, depth) of
+    GROUPED_TILES that lets two CTAs share an SM, else the first that fits
+    one. A run of 8 samples of one worker, about 8 rows apart in a random
+    eighth of a rollout, spans about 7 * 8 + L rows, so each staged row
+    serves about 8 windows; B / 8 runs still give about one CTA per SM at
+    the smallest shipped minibatch (1024)."""
+    if D // H > GROUPED_MAX_HEAD_WIDTH:
+        raise ValueError(f"the grouped kernels take head widths up to "
+                         f"{GROUPED_MAX_HEAD_WIDTH}, got {D // H}")
+    for R in (8, 4):
+        threads = 8 * H * R
+        if threads <= MAX_THREADS:
+            break
+    _check_threads(threads, H)
+    (rows, depth), smem = _first_fit(
+        GROUPED_TILES, lambda rd: smem_of(R, *rd), L, D, H)
+    return GroupedPlan(R, rows, depth, threads, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_forward_plan(L: int, D: int, H: int) -> GroupedPlan:
+    """The launch plan of ``csrc/window_attention_fwd_grouped.cu``."""
+    return _grouped_plan(L, D, H, lambda R, rows, depth:
+                         grouped_forward_smem_bytes(L, D, R, rows, depth))
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_backward_plan(L: int, D: int, H: int) -> GroupedPlan:
+    """The launch plan of the first pass of
+    ``csrc/window_attention_bwd_grouped.cu``."""
+    return _grouped_plan(L, D, H, lambda R, rows, depth:
+                         grouped_backward_smem_bytes(L, D, H, R, rows, depth))
+
+
+# The grouped kernels' walk, in Python (the CPU tests hold it to its
+# contract; the card runs csrc/window_runs.cuh).
+
+def grouped_order(w_idx, start, W: int):
+    """The grouped kernels' sort: the minibatch stably sorted by (worker
+    clamped to [0, W), start). Returns (order, seg): the sorted rows, and the
+    first sorted position of each worker 0..W."""
+    w = w_idx.long().clamp(0, W - 1)
+    key = w * 2 ** 32 + (start.long() + 2 ** 31)
+    order = torch.sort(key, stable=True).indices
+    seg = torch.searchsorted(w[order], torch.arange(W + 1, device=w.device))
+    return order, seg
+
+
+def grouped_runs(seg, R: int) -> list:
+    """The run of each CTA x of the grouped kernels, (w, j0, j1) for sorted
+    samples [j0, j1) of worker w, or None where x has none: worker w's
+    segment is cut into runs of R, and run c goes to CTA seg[w] // R + w + c,
+    of ceil(B / R) + W CTAs."""
+    seg = [int(v) for v in seg]
+    W, B = len(seg) - 1, seg[-1]
+    runs = []
+    for x in range(-(-B // R) + W):
+        w = max(v for v in range(W) if seg[v] // R + v <= x)
+        j0 = seg[w] + (x - (seg[w] // R + w)) * R
+        runs.append((w, j0, min(j0 + R, seg[w + 1])) if j0 < seg[w + 1]
+                    else None)
+    return runs
+
+
+def _span(base: int, la: int, lb: int, n: int):
+    """Window rows [la, lb) of one table: (rows(l), first_at(x))."""
+    row = lambda l: min(max(base + l, 0), n - 1)
+
+    def first_at(x):
+        if x <= 0:
+            return la
+        if x > n - 1:
+            return lb
+        return min(max(x - base, la), lb)
+    return row, first_at
+
+
+def run_tiles(samples, S: int, P: int, L: int, rows: int):
+    """A run's walk: samples is a list of (start, n_valid, s_lo). Returns the
+    tiles (table, first row, rows; table 0 the worker's timeline, 1 the PE
+    table) of the union of the windows in the order the ring stages them,
+    skipping tiles that no window meets, and for each tile the window rows l
+    each sample takes from it, with the tile row each reads."""
+    spans = []
+    for st, nv, slo in samples:
+        nv = min(max(nv, 0), L)
+        spans.append(((st, 0, nv, S), (slo, nv, L, P)))
+    tiles, taken = [], []
+    for table in (0, 1):
+        own = [sp[table] for sp in spans if sp[table][1] < sp[table][2]]
+        rows_of = [(_span(*sp)[0](sp[1]), _span(*sp)[0](sp[2] - 1) + 1)
+                   for sp in own]
+        if not rows_of:
+            continue
+        lo = min(a for a, _ in rows_of)
+        hi = max(b for _, b in rows_of)
+        for r0 in range(lo, hi, rows):
+            r1 = min(r0 + rows, hi)
+            if not any(a < r1 and b > r0 for a, b in rows_of):
+                continue
+            tiles.append((table, r0, r1 - r0))
+            per_sample = []
+            for sp in spans:
+                row, first_at = _span(*sp[table])
+                per_sample.append([(l, row(l) - r0) for l in
+                                   range(first_at(r0), first_at(r1))])
+            taken.append(per_sample)
+    return tiles, taken
+
+
+def reduce_candidates(sorted_start, seg, w: int, t0: int, L: int,
+                      rows: int = REDUCE_ROWS):
+    """The sorted samples [j_lo, j_hi) that pass 2 of the grouped backward
+    visits for rows [t0, t0 + rows) of worker w's timeline: those of the
+    worker's segment with start in [t0 - L + 1, t0 + rows)."""
+    s0, s1 = int(seg[w]), int(seg[w + 1])
+    starts = [int(v) for v in sorted_start[s0:s1]]
+    return (s0 + sum(st < t0 - L + 1 for st in starts),
+            s0 + sum(st < t0 + rows for st in starts))
 
 
 class _CudaKernel:
@@ -434,13 +625,14 @@ class WindowAttentionBackward(_CudaKernel):
 
 
 class WindowAttentionForwardGrouped(_CudaKernel):
-    """The grouped CUDA forward: out (B, D). The wrapper sorts the minibatch
-    by worker (``torch.sort(..., stable=True)``, deterministic on CUDA); the
-    kernel reads the samples through that order and writes each output back
-    to its own row."""
+    """The grouped CUDA forward: out (B, D). One call launches the sort of
+    the minibatch by (worker, start) on the card and then the kernel, a CTA
+    per run of sorted samples of one worker (``grouped_forward_plan``); each
+    output goes straight to its own row."""
 
     symbol = "window_attention_fwd_grouped"
     n_pointers = 13
+    n_ints = 7 + len(GroupedPlan._fields)
     plain = staticmethod(window_attention_grouped_plain)
 
     def __init__(self, source: Path = FWD_GROUPED_SOURCE,
@@ -453,23 +645,54 @@ class WindowAttentionForwardGrouped(_CudaKernel):
                   n_valid, s_lo, mask)
         B, D = _check_inputs(*inputs, num_heads)
         W, S, _ = timeline_k.shape
-        w_sorted, order = torch.sort(w_idx, stable=True)
+        L = mask.shape[1]
+        plan = grouped_forward_plan(L, D, num_heads)
+        # The sort's int32 scratch, meta (5, B) and seg (W + 1), in one
+        # buffer, freed when this returns; the caching allocator gives its
+        # memory only to later work on this stream.
+        scratch = torch.empty(5 * B + W + 1, dtype=torch.int32,
+                              device=q.device)
+        meta = scratch.data_ptr()
         out = torch.empty_like(q)
-        self._launch([t.data_ptr() for t in inputs + (order, w_sorted, out)],
-                     (B, W, S, pe_k.shape[0], mask.shape[1], D, num_heads),
+        self._launch([t.data_ptr() for t in inputs] + [meta, meta + 20 * B]
+                     + [out.data_ptr()],
+                     (B, W, S, pe_k.shape[0], L, D, num_heads, *plan),
                      q.device)
         return out
+
+    def sort(self, w_idx, start, n_valid, s_lo, W: int):
+        """The kernels' sort alone, on the card (not counted as a launch):
+        meta (5, B), the sorted samples' (row, w_idx, start, n_valid, s_lo),
+        and seg (W + 1,), each worker's first sorted position."""
+        B = w_idx.shape[0]
+        buf = torch.empty(5 * B + W + 1, dtype=torch.int32,
+                          device=w_idx.device)
+        meta, seg = buf[:5 * B], buf[5 * B:]
+        self._function()
+        fn = self._lib.window_attention_grouped_sort
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        stream = torch.cuda.current_stream(w_idx.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in (w_idx, start, n_valid, s_lo, meta,
+                                          seg)), B, W, stream)
+        if err != 0:
+            raise RuntimeError(f"window_attention_grouped_sort launch "
+                               f"failed: CUDA error {err}")
+        return meta.view(5, B), seg
 
 
 class WindowAttentionBackwardGrouped(_CudaKernel):
     """The grouped, deterministic CUDA backward: (dq, dtk, dtv, dpk, dpv) for
     the output gradient g. No float is added atomically and every entry is
-    summed in one fixed order (the minibatch sorted by worker), so two calls
-    on one input return the same bits. One call launches the kernel's three
-    passes and counts as one launch."""
+    summed in one fixed order (the minibatch sorted by (worker, start)), so
+    two calls on one input return the same bits. One call launches the sort
+    and the kernel's three passes and counts as one launch;
+    ``grouped_backward_plan`` chooses the first pass's launch."""
 
     symbol = "window_attention_bwd_grouped"
     n_pointers = 22
+    n_ints = 7 + len(GroupedPlan._fields)
     plain = staticmethod(window_attention_grouped_bwd_plain)
 
     def __init__(self, source: Path = BWD_GROUPED_SOURCE,
@@ -495,22 +718,28 @@ class WindowAttentionBackwardGrouped(_CudaKernel):
         _check_grad(g, q)
         W, S, _ = timeline_k.shape
         P, L = pe_k.shape[0], mask.shape[1]
-        w_sorted, order = torch.sort(w_idx, stable=True)
-        seg = torch.searchsorted(
-            w_sorted, torch.arange(W + 1, dtype=torch.int32, device=q.device),
-            out_int32=True)
-        new = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                         device=q.device)
-        scratch = (new(B, num_heads, L), new(B, num_heads, L),
-                   new(-(-B // self.pe_chunk()), P, D),
-                   new(-(-B // self.pe_chunk()), P, D))
+        H = num_heads
+        plan = grouped_backward_plan(L, D, H)
+        chunks = -(-B // self.pe_chunk())
+        # One scratch buffer, each part starting 16-byte aligned, passed as
+        # addresses: the sort's int32 meta (5, B) and seg (W + 1), then
+        # float32 probs, dscores (B, H, L) and part_k, part_v (chunks, P, D).
+        sizes = [(n + 3) // 4 * 4 for n in (5 * B, W + 1, B * H * L,
+                                            B * H * L, chunks * P * D,
+                                            chunks * P * D)]
+        scratch = torch.empty(sum(sizes), dtype=torch.float32,
+                              device=q.device)
+        base, parts = scratch.data_ptr(), []
+        for size in sizes:
+            parts.append(base)
+            base += 4 * size
         grads = [torch.empty_like(t) for t in
                  (q, timeline_k, timeline_v, pe_k, pe_v)]
-        # order, seg and the scratch are freed when this returns; the caching
-        # allocator gives their memory only to later work on this stream.
-        self._launch([t.data_ptr() for t in
-                      inputs + (g, order, seg, *scratch, *grads)],
-                     (B, W, S, P, L, D, num_heads), q.device)
+        # The scratch is freed when this returns; the caching allocator gives
+        # its memory only to later work on this stream.
+        self._launch([t.data_ptr() for t in inputs + (g,)] + parts
+                     + [t.data_ptr() for t in grads],
+                     (B, W, S, P, L, D, H, *plan), q.device)
         return tuple(grads)
 
 

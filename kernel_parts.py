@@ -3,6 +3,7 @@
 of its CUDA source with parts cut out, at the shapes of chip_smoke.py.
 
     python3 kernel_parts.py --kernel bwd --cut 'no scatter|// Scatter dK|return;'
+    python3 kernel_parts.py --kernel bwd_grouped --cut 'pass 1 only|const int threads2|return 0;'
 
 Run it from the root of the checkout whose kernel it times: it imports that
 checkout's wrapper (etmppo_tpu_torch.ops.window_attention) and chip_smoke.py.
@@ -12,10 +13,14 @@ the kernel there, ``if (false)`` drops the statement that follows). The copies a
 under etmppo_tpu_torch/_build/parts/ with the headers they include, never
 beside the source; their results are wrong by design and are not checked.
 Each is timed as chip_smoke.py times a kernel (3 warm-up and 20 timed
-launches), with the whole kernel, in turns forth and back; for the backward,
-the zeroing of its four gradient tables alone is timed too, as four
-``zeros_like`` ("zeroing only") and as one zeroed buffer. Prints one line
-per shape and, last, one JSON object.
+launches), through its wrapper (for the grouped pair, the sort and the
+scratch included), with the whole kernel, in turns forth and back; for the
+per-sample backward, the zeroing of its four gradient tables alone is timed too, as four
+``zeros_like`` ("zeroing only") and as one zeroed buffer. With --profile,
+each copy's kernels are also traced with torch.profiler and their device ms
+per call printed by kernel (the host's own time in the wrapper, which the
+event timing includes where it exceeds the device's, is left out). Prints
+one line per shape and, last, one JSON object.
 """
 from __future__ import annotations
 
@@ -29,6 +34,12 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+# --kernel: the wrapper class of etmppo_tpu_torch.ops.window_attention whose
+# source is cut.
+KERNELS = {"fwd": "WindowAttentionForward", "bwd": "WindowAttentionBackward",
+           "fwd_grouped": "WindowAttentionForwardGrouped",
+           "bwd_grouped": "WindowAttentionBackwardGrouped"}
 
 
 def variant_sources(source: Path, cuts, out_dir: Path) -> dict:
@@ -55,11 +66,37 @@ def variant_sources(source: Path, cuts, out_dir: Path) -> dict:
     return paths
 
 
+def device_ms(fn, iters: int = 20) -> dict:
+    """Device ms per call of each CUDA kernel that ``fn`` launches, over
+    ``iters`` calls traced by torch.profiler (after one untraced call), by
+    kernel function name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for event in prof.key_averages():
+        total = getattr(event, "device_time_total", None)
+        if total is None:
+            total = getattr(event, "cuda_time_total", 0)
+        if total:
+            name = re.findall(r"(\w+_kernel\w*)", event.key)
+            key = name[0] if name else event.key[:40]
+            out[key] = out.get(key, 0.0) + total / iters / 1e3
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("fwd", "bwd"), default="bwd")
+    parser.add_argument("--kernel", choices=sorted(KERNELS), default="bwd")
     parser.add_argument("--cut", action="append", default=[])
     parser.add_argument("--shapes", default="flagship,mysterypath,mortarmayhem")
+    parser.add_argument("--profile", action="store_true",
+                        help="also print each CUDA kernel's device ms per "
+                        "call of each copy, from torch.profiler")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_parts: no CUDA device is available", file=sys.stderr)
@@ -72,8 +109,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    cls = (wa.WindowAttentionBackward if opts.kernel == "bwd"
-           else wa.WindowAttentionForward)
+    cls = getattr(wa, KERNELS[opts.kernel])
     source = Path(cls().source)
     parts_dir = wa.BUILD_DIR / "parts"
     paths = variant_sources(source, opts.cut, parts_dir)
@@ -87,7 +123,7 @@ def main() -> int:
     for shape in opts.shapes.split(","):
         args, heads = chip_smoke.window_inputs(gen, device, shape)
         g = torch.randn(args[0].shape, generator=gen).to(device)
-        extra = (g,) if opts.kernel == "bwd" else ()
+        extra = (g,) if opts.kernel.startswith("bwd") else ()
         runs = {name: (lambda k=k: k(*args, *extra, heads))
                 for name, k in kernels.items()}
         if opts.kernel == "bwd":
@@ -100,6 +136,12 @@ def main() -> int:
         for name in turns:
             times[name].append(chip_smoke.cuda_ms(runs[name]))
         result[shape] = times
+        if opts.profile:
+            traced = {name: device_ms(fn) for name, fn in runs.items()}
+            result[shape + " device"] = traced
+            for name, kernels_ms in traced.items():
+                print(f"{shape} device, {name}: " + "; ".join(
+                    f"{k} {v:.4f}" for k, v in kernels_ms.items()), flush=True)
         print(f"{shape}: " + "; ".join(
             f"{name} {t[0]:.4f} / {t[1]:.4f} ms" for name, t in times.items()),
             flush=True)

@@ -129,7 +129,7 @@ def test_per_sample_wrappers_pass_the_plan():
             wa.window_attention_bwd.n_ints) == (10, 11)
     for kernel in (wa.window_attention_fwd_grouped,
                    wa.window_attention_bwd_grouped):
-        assert kernel.n_ints == 7
+        assert kernel.n_ints == 7 + len(wa.GroupedPlan._fields)
 
 
 def test_library_path_depends_on_included_header(tmp_path):
