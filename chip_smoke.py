@@ -33,7 +33,9 @@ Phases, each printing one line with its seconds:
                 start, a worker with three samples far apart, a worker of 13
                 samples. Two calls of the grouped backward must give the
                 same bits, and the grouped kernels' sort on the card must
-                be the stable (worker, start) sort. Times kernel, plain
+                be the stable (worker, start) sort. The same at the
+                Searing Spotlights shape (B=2048, W=32, S=864, P=256, L=96,
+                D=256, H=4). Times kernel, plain
                 version, a library yardstick (gather +
                 scaled_dot_product_attention, and for the backward autograd
                 through that graph) and the bound.
@@ -41,7 +43,14 @@ Phases, each printing one line with its seconds:
                 YAML says (pallas_backward: true) at full width (16 workers x
                 512 steps, TrXL 3 x 384, 5 epochs x 8 minibatches); each kernel
                 must launch exactly 120 times per update (3 blocks x 40
-                minibatches) and every stat must be finite. Then, on one more
+                minibatches) and every stat must be finite. The second
+                update runs under utils/profiling.trace (torch.profiler):
+                trainer-busy prints the device busy share of that update
+                (the union of the card's kernel, copy and memset intervals
+                over its wall time), of its rollout and of its PPO update
+                (split where the host enters the update), and the same
+                busy seconds over the untraced times of trainer-split, as
+                pocmemory-busy does for PocMemory. Then, on one more
                 rollout, the loss and gradients of one minibatch through both
                 kernels must match those through both plain versions; and one
                 more rollout and PPO update are timed apart, the update with
@@ -73,12 +82,31 @@ Phases, each printing one line with its seconds:
                 cuDNN's deterministic mode on, where the grouped pair's two
                 updates must give the same bits; with the mean seconds of an
                 update in each setting.
+7. searingspotlights: two PPO updates of Searing Spotlights exactly as its
+                YAML says (32 workers x 512 steps, TrXL 2 x 256, memory 96,
+                3 epochs x 8 minibatches, both kernels of the per-sample
+                pair); each must launch exactly 48 times per update, the
+                grouped ones never; the saved .nn must load back to the same
+                weights. Then, on one more rollout, the loss and gradients of
+                one minibatch through the kernel pair must match those of the
+                gathered-window path (plain PyTorch); and the PPO update is
+                timed with the plain and the kernel backward in turns.
+8. pocmemory:   30 PPO updates of PocMemory exactly as its YAML says (16
+                workers x 128 steps, GTrXL 4 x 64, 4 epochs x 8 minibatches)
+                on the gathered-window loss, no kernel launched; prints the
+                steady env-steps/s, the success the 30th update reached
+                (printed, not checked: the CPU test holds the bar), and one
+                more rollout and PPO update timed apart.
+9. cartpole:    three PPO updates of masked-velocity CartPole exactly as its
+                YAML says (16 workers x 256 steps, GTrXL 4 x 128, 4 epochs x
+                4 minibatches), the same way.
 
 Then it prints the kernel table as one JSON line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result line.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -122,10 +150,14 @@ UPDATES = 2
 FLAGSHIP_LAUNCHES = 120        # per update: 3 blocks x 5 epochs x 8 minibatches
 MYSTERY_LAUNCHES = 48          # per update: 2 blocks x 3 epochs x 8 minibatches
 MORTAR_LAUNCHES = 72           # per update: 3 blocks x 3 epochs x 8 minibatches
-# (W, T, max_episode_steps, L, D, B) of the three configurations' minibatches.
+SEARING_LAUNCHES = 48          # per update: 2 blocks x 3 epochs x 8 minibatches
+POC_UPDATES = 30               # PocMemory's learning run
+# (W, T, max_episode_steps, L, D, B) of the minibatches of the four
+# configurations that run the kernels.
 SHAPES = {"flagship": (16, 512, 96, 64, 384, 1024),
           "mysterypath": (32, 512, 128, 96, 256, 2048),
-          "mortarmayhem": (32, 512, 120, 118, 384, 2048)}
+          "mortarmayhem": (32, 512, 120, 118, 384, 2048),
+          "searingspotlights": (32, 512, 256, 96, 256, 2048)}
 # The kernels, and the configuration whose path launches each.
 NAMES = ("window_attention_fwd", "window_attention_bwd",
          "window_attention_fwd_grouped", "window_attention_bwd_grouped")
@@ -446,21 +478,29 @@ def describe(name: str, m: dict) -> str:
             f"{m['bound_ms']:.4f} ({m['bound_by']})")
 
 
-def minibatch_agreement(trainer, batch) -> str:
-    """Loss and gradients of one minibatch of ``batch`` through the trainer's
-    kernels and through the plain versions."""
+def minibatch_agreement(trainer, batch, gathered: bool = False) -> str:
+    """Loss and gradients of one minibatch of ``batch`` through the
+    trainer's kernels, and through the plain versions of the kernels or,
+    with ``gathered``, through the gathered-window path (plain PyTorch)."""
     upd = trainer.update_fn
-    timeline, slots, fields = upd.prepare(batch)
+    timeline, slots, fields = upd.prepare_timeline(batch)
     gen = torch.Generator(trainer.device).manual_seed(7)
     idx = torch.randperm(trainer.config.batch_size, generator=gen,
                          device=trainer.device)[:trainer.config.mini_batch_size]
-    mb = upd.minibatch(fields, idx)
-    results = []
     kernels = (upd.kernel, upd.backward_kernel)
-    for fwd, bwd in (kernels, (None, None)):
+    paths = [(upd.loss_timeline, kernels, timeline, slots, fields)]
+    if gathered:
+        paths.append((upd.loss_gathered, kernels) + upd.prepare_gathered(batch))
+    else:
+        paths.append((upd.loss_timeline, (None, None), timeline, slots,
+                      fields))
+    del timeline, fields
+    results = []
+    for loss_fn, (fwd, bwd), memory, memory_slots, mb_fields in paths:
         upd.kernel, upd.backward_kernel = fwd, bwd
         trainer.model.zero_grad(set_to_none=True)
-        loss, _ = upd.loss(mb, timeline, slots, 0.1, 0.001)
+        loss, _ = loss_fn(upd.minibatch(mb_fields, idx), memory,
+                          memory_slots, 0.1, 0.001)
         loss.backward()
         results.append((loss.detach(), [p.grad.detach().clone() for p in
                                         trainer.model.parameters()]))
@@ -472,12 +512,14 @@ def minibatch_agreement(trainer, batch) -> str:
     grad_max = max(b.abs().max().item() for b in grads_p)
     if not math.isfinite(loss_k.item()):
         raise RuntimeError("minibatch loss is not finite")
+    reference = "gathered-window" if gathered else "plain"
     if (loss_err > LOSS_RTOL * max(1.0, abs(loss_p.item()))
             or grad_err > GRAD_RTOL * grad_max):
-        raise RuntimeError(f"kernel path disagrees with the plain path: "
-                           f"loss diff {loss_err}, grad diff {grad_err}")
-    return (f"loss {loss_k.item():.6f} vs {loss_p.item():.6f}, max grad diff "
-            f"{grad_err:.3e} of max grad {grad_max:.3e}")
+        raise RuntimeError(f"kernel path disagrees with the {reference} "
+                           f"path: loss diff {loss_err}, grad diff {grad_err}")
+    return (f"loss {loss_k.item():.6f} vs {loss_p.item():.6f} ({reference} "
+            f"path), max grad diff {grad_err:.3e} of max grad "
+            f"{grad_max:.3e}")
 
 
 def update_seconds(trainer, batch, pair) -> float:
@@ -497,7 +539,8 @@ def update_seconds(trainer, batch, pair) -> float:
 def split_update(trainer, pairs: dict) -> tuple:
     """Times one more rollout, then one PPO update on its batch with each
     (forward, backward) pair of ``pairs`` in turns, forth and back (a, b, b,
-    a). Returns (phase start, detail)."""
+    a). Returns (phase start, detail, (rollout seconds, mean update seconds
+    by pair))."""
     t = time.perf_counter()
     _, batch = trainer.rollout_fn(trainer.rollout_state)
     torch.cuda.synchronize()
@@ -509,7 +552,82 @@ def split_update(trainer, pairs: dict) -> tuple:
     return t, (f"rollout {rollout_s:.2f}s; ppo update in turns "
                + ", ".join(f"{n} {s:.3f}" for n, s in zip(turns, secs))
                + "s; mean " + ", ".join(f"{n} {m:.3f}s"
-                                        for n, m in mean.items()))
+                                        for n, m in mean.items())), (
+        rollout_s, mean)
+
+
+def train_counted(trainer, k, label: str, expected: dict,
+                  trace_dir: str = None):
+    """Sets every launch count to 0, then runs UPDATES updates of
+    ``trainer``, with a ``trace_dir`` the second under
+    ``utils/profiling.trace``; after each update, each kernel of
+    ``expected`` (name -> launches per update) must have launched that many
+    times per update so far, every other kernel never, and every stat must
+    be finite. Returns the seconds of each update and the traced update's
+    ``device_busy`` shares (None without a trace)."""
+    from etmppo_tpu_torch.utils.profiling import trace
+    for kernel in k.values():
+        kernel.launches = 0
+    per_update = []
+    for u in range(UPDATES):
+        traced = u == 1 and trace_dir is not None
+        tu = time.perf_counter()
+        with (trace(trace_dir) if traced else contextlib.nullcontext()):
+            stats = trainer.train_one_update()
+            torch.cuda.synchronize()
+            per_update.append(time.perf_counter() - tu)   # without the export
+        bad = {n: v for n, v in stats.items() if not math.isfinite(v)}
+        if bad:
+            raise RuntimeError(f"{label} update {u}: non-finite stats {bad}")
+        for name, kernel in k.items():
+            check_launches((kernel,), expected.get(name, 0) * (u + 1),
+                           f"{label} update {u}")
+        print(f"update {u}: {per_update[-1]:.2f}s{' (traced)' * traced} "
+              f"loss {stats['loss']:.6f} entropy {stats['entropy']:.4f} "
+              f"value_loss {stats['value_loss']:.6f}", flush=True)
+    if trace_dir is None:
+        return per_update, None
+    from etmppo_tpu_torch.utils.profiling import TRACE_FILE, device_busy
+    shares = device_busy(os.path.join(trace_dir, TRACE_FILE),
+                         ("rollout", "ppo_update"))
+    if shares["total"]["busy_s"] <= 0:
+        raise RuntimeError(f"{label}: the trace holds no device activity")
+    return per_update, shares
+
+
+def busy_line(wall_s: float, shares: dict, rollout_s: float,
+              update_s: float) -> str:
+    """The device busy share of the traced update (``utils/profiling.py``):
+    the union of the card's kernel, copy and memset intervals over the
+    update's wall time, and over its rollout and PPO update apart (split
+    where the host enters the PPO update); then the same busy seconds over
+    the wall seconds of the untraced rollout and PPO update of the split
+    phase, since the profiler slows the host and not the device."""
+    untraced = {"rollout": rollout_s, "ppo_update": update_s,
+                "total": rollout_s + update_s}
+    return (f"update 2 traced ({wall_s:.2f}s with the profiler): device busy "
+            + ", ".join(f"{name} {m['busy_share'] * 100:.1f}% of "
+                        f"{m['wall_s']:.3f}s ({m['busy_s']:.3f}s busy)"
+                        for name, m in shares.items())
+            + "; over the untraced split's times: " + ", ".join(
+                f"{name} {shares[name]['busy_s'] / wall * 100:.1f}% of "
+                f"{wall:.3f}s" for name, wall in untraced.items()))
+
+
+def kernel_shape(trainer, name: str) -> str:
+    """The window-attention kernel shape ``trainer`` gives, which must be
+    ``SHAPES[name]``, as text."""
+    config, trx = trainer.config, trainer.config.transformer
+    max_ep = trainer.max_episode_steps
+    shape = (config.n_workers, config.worker_steps, max_ep,
+             trx.memory_length, trx.embed_dim, config.mini_batch_size)
+    if shape != SHAPES[name]:
+        raise RuntimeError(f"{name}: kernel shape {shape}, expected "
+                           f"{SHAPES[name]}")
+    return (f"kernel shape B={config.mini_batch_size} W={config.n_workers} "
+            f"S={max_ep + config.worker_steps + trx.memory_length} "
+            f"P={max_ep} L={trx.memory_length} D={trx.embed_dim} "
+            f"H={trx.num_heads}")
 
 
 def check_launches(kernels, expected: int, label: str) -> None:
@@ -533,42 +651,32 @@ def run_flagship(device, k) -> list:
             raise RuntimeError("the flagship config must use the backward "
                                "kernel")
         trainer = PPOTrainer(config, run_id="chip_smoke", device=device)
-        fwd, bwd, fwd_g, bwd_g = (k[n] for n in NAMES)
+        fwd, bwd = k[NAMES[0]], k[NAMES[1]]
         try:
             torch.cuda.synchronize()
             phase("trainer-setup", t)
-            for kernel in k.values():
-                kernel.launches = 0
-            per_update = []
-            for u in range(UPDATES):
-                tu = time.perf_counter()
-                stats = trainer.train_one_update()
-                torch.cuda.synchronize()
-                per_update.append(time.perf_counter() - tu)
-                bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
-                if bad:
-                    raise RuntimeError(f"update {u}: non-finite stats {bad}")
-                check_launches((fwd, bwd), FLAGSHIP_LAUNCHES * (u + 1),
-                               f"flagship update {u}")
-                check_launches((fwd_g, bwd_g), 0, f"flagship update {u}")
-                print(f"update {u}: {per_update[-1]:.2f}s "
-                      f"loss {stats['loss']:.6f} entropy "
-                      f"{stats['entropy']:.4f} value_loss "
-                      f"{stats['value_loss']:.6f}", flush=True)
+            per_update, shares = train_counted(
+                trainer, k, "flagship", {n: FLAGSHIP_LAUNCHES
+                                         for n in NAMES[:2]},
+                os.path.join(tmp, "trace"))
             launches = [k[n].launches for n in NAMES]
             steps = config.n_workers * config.worker_steps
             phase("trainer", t,
                   f"{UPDATES} updates, launches fwd {launches[0]} bwd "
                   f"{launches[1]}; s/update "
                   + " ".join(f"{s:.2f}" for s in per_update)
-                  + f"; env-steps/s {steps / per_update[-1]:.0f} (update 2)")
+                  + f"; env-steps/s {steps / per_update[-1]:.0f} (update 2,"
+                  " traced)")
             # After the counted run: the kernels against the plain versions
             # on one more rollout's data, and where an update's time goes.
             t = time.perf_counter()
             _, batch = trainer.rollout_fn(trainer.rollout_state)
             phase("trainer-check", t, minibatch_agreement(trainer, batch))
-            phase("trainer-split", *split_update(trainer, {
-                "plain backward": (fwd, None), "kernel backward": (fwd, bwd)}))
+            t, detail, (rollout_s, mean) = split_update(trainer, {
+                "plain backward": (fwd, None), "kernel backward": (fwd, bwd)})
+            phase("trainer-split", t, detail)
+            phase("trainer-busy", t, busy_line(
+                per_update[1], shares, rollout_s, mean["kernel backward"]))
         finally:
             trainer.close()
     return launches
@@ -655,7 +763,7 @@ def run_mysterypath(device, k) -> list:
               f"loss {stats['loss']:.6f}; mpg.nn loads to the same weights")
         phase("mysterypath-split", *split_update(resumed, {
             "plain backward": (per_sample[0], None),
-            "kernel backward": per_sample}))
+            "kernel backward": per_sample})[:2])
     return launches
 
 
@@ -721,40 +829,13 @@ def run_mortarmayhem(device, k) -> list:
             if (upd.kernel, upd.backward_kernel) != grouped:
                 raise RuntimeError("the Mortar Mayhem trainer must use the "
                                    "grouped kernels")
-            trx = config.transformer
-            max_ep = trainer.max_episode_steps
-            shape = (config.n_workers, config.worker_steps, max_ep,
-                     trx.memory_length, trx.embed_dim,
-                     config.mini_batch_size)
-            if shape != SHAPES["mortarmayhem"]:
-                raise RuntimeError(f"mortarmayhem: kernel shape {shape}, "
-                                   f"expected {SHAPES['mortarmayhem']}")
             torch.cuda.synchronize()
-            phase("mortarmayhem-setup", t,
-                  f"kernel shape B={config.mini_batch_size} "
-                  f"W={config.n_workers} "
-                  f"S={max_ep + config.worker_steps + trx.memory_length} "
-                  f"P={max_ep} L={trx.memory_length} D={trx.embed_dim} "
-                  f"H={trx.num_heads}")
+            phase("mortarmayhem-setup", t, kernel_shape(trainer,
+                                                         "mortarmayhem"))
             t = time.perf_counter()
-            for kernel in k.values():
-                kernel.launches = 0
-            per_update = []
-            for u in range(UPDATES):
-                tu = time.perf_counter()
-                stats = trainer.train_one_update()
-                torch.cuda.synchronize()
-                per_update.append(time.perf_counter() - tu)
-                bad = {n: v for n, v in stats.items() if not math.isfinite(v)}
-                if bad:
-                    raise RuntimeError(f"update {u}: non-finite stats {bad}")
-                check_launches(grouped, MORTAR_LAUNCHES * (u + 1),
-                               f"mortarmayhem update {u}")
-                check_launches(per_sample, 0, f"mortarmayhem update {u}")
-                print(f"update {u}: {per_update[-1]:.2f}s "
-                      f"loss {stats['loss']:.6f} entropy "
-                      f"{stats['entropy']:.4f} value_loss "
-                      f"{stats['value_loss']:.6f}", flush=True)
+            per_update, _ = train_counted(
+                trainer, k, "mortarmayhem",
+                {n: MORTAR_LAUNCHES for n in NAMES[2:]})
             launches = [k[n].launches for n in NAMES]
             trainer._save_model()
             model, _ = load_model(os.path.join(tmp, "mmg.nn"), device)
@@ -774,7 +855,7 @@ def run_mortarmayhem(device, k) -> list:
                   minibatch_agreement(trainer, batch))
             phase("mortarmayhem-split", *split_update(trainer, {
                 "plain backward": (grouped[0], None),
-                "per-sample pair": per_sample, "grouped pair": grouped}))
+                "per-sample pair": per_sample, "grouped pair": grouped})[:2])
             t = time.perf_counter()
             drift = {(name, det): update_drift(trainer, batch, pair, det)
                      for det in (False, True) for name, pair in
@@ -799,6 +880,110 @@ def run_mortarmayhem(device, k) -> list:
         finally:
             trainer.close()
     return launches
+
+
+def run_searingspotlights(device, k) -> list:
+    """Phase 7: Searing Spotlights with the per-sample kernel pair; returns
+    the launches of the counted run, in the order of NAMES."""
+    from etmppo_tpu_torch.config import SEARING_SPOTLIGHTS, config_from_dict
+    from etmppo_tpu_torch.training.checkpoint import load_model
+    from etmppo_tpu_torch.training.trainer import PPOTrainer
+    t = time.perf_counter()
+    per_sample = (k[NAMES[0]], k[NAMES[1]])
+    with tempfile.TemporaryDirectory() as tmp:
+        config = dataclasses.replace(
+            config_from_dict(SEARING_SPOTLIGHTS), updates=UPDATES,
+            summary_dir=tmp, checkpoint_dir=tmp)
+        trainer = PPOTrainer(config, run_id="ss", device=device)
+        try:
+            torch.cuda.synchronize()
+            phase("searingspotlights-setup", t,
+                  kernel_shape(trainer, "searingspotlights"))
+            t = time.perf_counter()
+            per_update, _ = train_counted(
+                trainer, k, "searingspotlights",
+                {n: SEARING_LAUNCHES for n in NAMES[:2]})
+            launches = [k[n].launches for n in NAMES]
+            trainer._save_model()
+            model, _ = load_model(os.path.join(tmp, "ss.nn"), device)
+            _assert_same(model.state_dict(), trainer.model.state_dict(),
+                         "model")
+            del model
+            steps = config.n_workers * config.worker_steps
+            phase("searingspotlights", t,
+                  f"{UPDATES} updates, launches fwd {launches[0]} bwd "
+                  f"{launches[1]}; s/update "
+                  + " ".join(f"{s:.2f}" for s in per_update)
+                  + f"; env-steps/s {steps / per_update[-1]:.0f} (update 2);"
+                  " ss.nn loads to the same weights")
+            t = time.perf_counter()
+            _, batch = trainer.rollout_fn(trainer.rollout_state)
+            phase("searingspotlights-check", t,
+                  minibatch_agreement(trainer, batch, gathered=True))
+            del batch
+            phase("searingspotlights-split", *split_update(trainer, {
+                "plain backward": (per_sample[0], None),
+                "kernel backward": per_sample})[:2])
+        finally:
+            trainer.close()
+    return launches
+
+
+def run_gathered(device, k, name: str, raw: dict, updates: int,
+                 traced: bool) -> None:
+    """Phases 8 and 9: a configuration on the gathered-window loss (no
+    kernel may launch), ``updates`` (more than UPDATES) updates, with
+    ``traced`` the second traced; prints the steady env-steps/s (over the
+    updates after the second), the last update's success where the env
+    reports one, and the rollout and PPO update seconds apart."""
+    from etmppo_tpu_torch.config import config_from_dict
+    from etmppo_tpu_torch.training.trainer import PPOTrainer
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        config = dataclasses.replace(
+            config_from_dict(raw), updates=updates, summary_dir=tmp,
+            checkpoint_dir=tmp)
+        if config.use_pallas_attention:
+            raise RuntimeError(f"{name} must take the gathered-window loss")
+        trainer = PPOTrainer(config, run_id=name, device=device)
+        try:
+            torch.cuda.synchronize()
+            phase(f"{name}-setup", t)
+            t = time.perf_counter()
+            per_update, shares = train_counted(
+                trainer, k, name, {},
+                os.path.join(tmp, "trace") if traced else None)
+            result = {}
+            for _ in range(updates - UPDATES):
+                tu = time.perf_counter()
+                result = trainer.train_one_update()
+                torch.cuda.synchronize()
+                per_update.append(time.perf_counter() - tu)
+            check_launches(k.values(), 0, name)
+            bad = {n: v for n, v in result.items() if not math.isfinite(v)}
+            if bad:
+                raise RuntimeError(f"{name}: non-finite stats {bad}")
+            steps = config.n_workers * config.worker_steps
+            steady = per_update[UPDATES:]
+            detail = (f"{updates} updates, no kernel launched; s/update "
+                      + " ".join(f"{s:.2f}" for s in per_update[:UPDATES])
+                      + (" (update 2 traced)" if traced else "")
+                      + "; steady env-steps/s "
+                      f"{steps * len(steady) / sum(steady):.0f} (mean over "
+                      f"updates {UPDATES + 1}-{updates})")
+            if "success" in result:
+                detail += (f"; update {updates}: success "
+                           f"{result['success']:.3f}, reward_mean "
+                           f"{result['reward_mean']:.3f}")
+            phase(name, t, detail)
+            t, detail, (rollout_s, mean) = split_update(trainer, {
+                "gathered loss": (None, None)})
+            phase(f"{name}-split", t, detail)
+            if traced:
+                phase(f"{name}-busy", t, busy_line(
+                    per_update[1], shares, rollout_s, mean["gathered loss"]))
+        finally:
+            trainer.close()
 
 
 def main() -> int:
@@ -871,6 +1056,12 @@ def main() -> int:
     launches["mysterypath"] = run_mysterypath(device, k)
     torch.cuda.empty_cache()
     launches["mortarmayhem"] = run_mortarmayhem(device, k)
+    torch.cuda.empty_cache()
+    launches["searingspotlights"] = run_searingspotlights(device, k)
+    torch.cuda.empty_cache()
+    from etmppo_tpu_torch.config import CARTPOLE_MASKED, POC_MEMORY
+    run_gathered(device, k, "pocmemory", POC_MEMORY, POC_UPDATES, True)
+    run_gathered(device, k, "cartpole", CARTPOLE_MASKED, UPDATES + 1, False)
 
     entries = []
     for i, name in enumerate(NAMES):

@@ -1,18 +1,25 @@
 """Command-line entry point (counterpart of ``etmppo_tpu/cli.py:train_main``).
 
     python -m etmppo_tpu_torch.cli --config=<yaml or json> --run-id=<id> \
-        [--cpu] [--resume] [--updates=N]
+        [--cpu] [--resume] [--updates=N] [--profile=DIR] [--seeds=N]
 
 Training runs on the CUDA device unless ``--cpu`` is given; without a GPU and
 without ``--cpu`` it raises. A ``.json`` config needs no PyYAML. ``--resume``
 continues from the run's latest checkpoint (``checkpoint_interval > 0``);
-the final model is saved as ``<checkpoint_dir>/<run-id>.nn``.
+the final model is saved as ``<checkpoint_dir>/<run-id>.nn``. ``--profile``
+writes a torch.profiler Chrome trace of training to
+``DIR/<run-id>/trace.json``. ``--seeds N``
+trains seeds ``seed .. seed + N - 1`` one after another as
+``<run-id>_s<seed>`` and prints the mean and std of their final
+``reward_mean``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 
 
 def _read_config(path: str):
@@ -24,6 +31,7 @@ def _read_config(path: str):
 
 
 def train_main(argv=None):
+    """Returns the last seed's training result."""
     parser = argparse.ArgumentParser(
         description="Train a TrXL PPO agent with PyTorch")
     parser.add_argument("--config", required=True,
@@ -36,28 +44,48 @@ def train_main(argv=None):
                         help="Resume from the latest checkpoint for this run-id")
     parser.add_argument("--updates", type=int, default=None,
                         help="Override the config's number of updates")
+    parser.add_argument("--profile", metavar="DIR", default=None,
+                        help="Write a torch.profiler trace of training to DIR")
+    parser.add_argument("--seeds", type=int, default=1,
+                        help="Train N seeds one after another; models saved "
+                             "as <run-id>_s<seed>.nn")
     args = parser.parse_args(argv)
 
     from .training.trainer import PPOTrainer
+    from .utils.profiling import trace
 
-    config = _read_config(args.config)
+    base = _read_config(args.config)
     if args.updates is not None:
-        config = dataclasses.replace(config, updates=args.updates)
-    trainer = PPOTrainer(config, run_id=args.run_id,
-                         device="cpu" if args.cpu else "cuda")
-    if args.resume:
-        resumed = trainer.resume_from_checkpoint()
-        print(f"Resumed from checkpoint at update {trainer.update}"
-              if resumed else "No checkpoint found; starting fresh")
-    try:
-        result = trainer.run_training()
-    finally:
-        trainer.close()
-    print(f"env steps/s: {result['env_steps_per_second']:,.0f}")
-    if "env_steps_per_second_steady" in result:
-        print(f"env steps/s (steady, without the first update): "
-              f"{result['env_steps_per_second_steady']:,.0f}")
-    return result
+        base = dataclasses.replace(base, updates=args.updates)
+    results = []
+    for i in range(args.seeds):
+        config = (base if args.seeds == 1
+                  else dataclasses.replace(base, seed=base.seed + i))
+        run_id = (args.run_id if args.seeds == 1
+                  else f"{args.run_id}_s{config.seed}")
+        trainer = PPOTrainer(config, run_id=run_id,
+                             device="cpu" if args.cpu else "cuda")
+        if args.resume:
+            resumed = trainer.resume_from_checkpoint()
+            print(f"Resumed from checkpoint at update {trainer.update}"
+                  if resumed else "No checkpoint found; starting fresh")
+        try:
+            with (trace(os.path.join(args.profile, run_id)) if args.profile
+                  else contextlib.nullcontext()):
+                result = trainer.run_training()
+        finally:
+            trainer.close()
+        print(f"env steps/s: {result['env_steps_per_second']:,.0f}")
+        if "env_steps_per_second_steady" in result:
+            print(f"env steps/s (steady, without the first update): "
+                  f"{result['env_steps_per_second_steady']:,.0f}")
+        results.append(result)
+    if len(results) > 1:
+        import numpy as np
+        rewards = [r.get("reward_mean", float("nan")) for r in results]
+        print(f"[{len(results)} seeds] final reward_mean: "
+              f"{np.nanmean(rewards):.3f} +/- {np.nanstd(rewards):.3f}")
+    return results[-1]
 
 
 if __name__ == "__main__":

@@ -162,6 +162,130 @@ MORTAR_MAYHEM_GRID: Dict[str, Any] = {
 }
 
 
+# ... and the two vector-observation configs, which take the gathered-window
+# loss (no use_pallas_attention): PocMemory
+# (etmppo_tpu/configs/poc_memory_env.yaml) ...
+POC_MEMORY: Dict[str, Any] = {
+    "environment": {"type": "PocMemoryEnv"},
+    "gamma": 0.99,
+    "lamda": 0.95,
+    "updates": 200,
+    "epochs": 4,
+    "n_workers": 16,
+    "worker_steps": 128,
+    "n_mini_batch": 8,
+    "value_loss_coefficient": 0.1,
+    "hidden_layer_size": 64,
+    "max_grad_norm": 0.5,
+    "transformer": {
+        "num_blocks": 4,
+        "embed_dim": 64,
+        "num_heads": 1,
+        "memory_length": 32,
+        "positional_encoding": "",
+        "layer_norm": "pre",
+        "gtrxl": True,
+        "gtrxl_bias": 0.0,
+    },
+    "learning_rate_schedule": {"initial": 3.0e-4, "final": 3.0e-4,
+                               "power": 1.0, "max_decay_steps": 200},
+    "beta_schedule": {"initial": 0.001, "final": 0.0001, "power": 1.0,
+                      "max_decay_steps": 200},
+    "clip_range_schedule": {"initial": 0.2, "final": 0.2, "power": 1.0,
+                            "max_decay_steps": 200},
+    "seed": 0,
+}
+
+# ... and masked-velocity CartPole (etmppo_tpu/configs/cartpole.yaml) ...
+CARTPOLE_MASKED: Dict[str, Any] = {
+    "environment": {"type": "CartPoleMasked"},
+    "gamma": 0.99,
+    "lamda": 0.95,
+    "updates": 300,
+    "epochs": 4,
+    "n_workers": 16,
+    "worker_steps": 256,
+    "n_mini_batch": 4,
+    "value_loss_coefficient": 0.2,
+    "hidden_layer_size": 128,
+    "max_grad_norm": 0.5,
+    "transformer": {
+        "num_blocks": 4,
+        "embed_dim": 128,
+        "num_heads": 1,
+        "memory_length": 32,
+        "positional_encoding": "",
+        "layer_norm": "pre",
+        "gtrxl": True,
+        "gtrxl_bias": 0.0,
+    },
+    "learning_rate_schedule": {"initial": 3.0e-4, "final": 3.0e-5,
+                               "power": 1.0, "max_decay_steps": 300},
+    "beta_schedule": {"initial": 0.001, "final": 0.0001, "power": 1.0,
+                      "max_decay_steps": 300},
+    "clip_range_schedule": {"initial": 0.2, "final": 0.2, "power": 1.0,
+                            "max_decay_steps": 300},
+    "seed": 0,
+}
+
+# ... and MemoryGym Searing Spotlights
+# (etmppo_tpu/configs/searing_spotlights.yaml), with its two variants: ten
+# times the entropy bonus (searing_spotlights_beta.yaml), and that plus a
+# damage penalty (searing_spotlights_shaped.yaml).
+SEARING_SPOTLIGHTS: Dict[str, Any] = {
+    "environment": {
+        "type": "SearingSpotlights",
+        "name": "SearingSpotlights-v0",
+        "reset_params": {"start-seed": 0, "num-seeds": 100000},
+    },
+    "gamma": 0.995,
+    "lamda": 0.95,
+    "updates": 3000,
+    "epochs": 3,
+    "n_workers": 32,
+    "worker_steps": 512,
+    "n_mini_batch": 8,
+    "value_loss_coefficient": 0.5,
+    "hidden_layer_size": 256,
+    "max_grad_norm": 0.25,
+    "transformer": {
+        "num_blocks": 2,
+        "embed_dim": 256,
+        "num_heads": 4,
+        "memory_length": 96,
+        "positional_encoding": "",
+        "layer_norm": "pre",
+        "gtrxl": False,
+        "gtrxl_bias": 0.0,
+    },
+    "learning_rate_schedule": {"initial": 2.75e-4, "final": 1.0e-5,
+                               "power": 1.0, "max_decay_steps": 10000},
+    "beta_schedule": {"initial": 0.001, "final": 0.000001, "power": 1.0,
+                      "max_decay_steps": 10000},
+    "clip_range_schedule": {"initial": 0.1, "final": 0.1, "power": 1.0,
+                            "max_decay_steps": 10000},
+    "seed": 0,
+    "updates_per_launch": 4,
+    "checkpoint_interval": 100,
+    "use_pallas_attention": True,
+    "pallas_backward": True,
+}
+SEARING_SPOTLIGHTS_BETA: Dict[str, Any] = {
+    **SEARING_SPOTLIGHTS,
+    "beta_schedule": {"initial": 0.01, "final": 0.0001, "power": 1.0,
+                      "max_decay_steps": 10000},
+}
+SEARING_SPOTLIGHTS_SHAPED: Dict[str, Any] = {
+    **SEARING_SPOTLIGHTS_BETA,
+    "environment": {
+        "type": "SearingSpotlights",
+        "name": "SearingSpotlights-v0",
+        "reset_params": {"start-seed": 0, "num-seeds": 100000,
+                         "reward_damage": -0.01},
+    },
+}
+
+
 @dataclass(frozen=True)
 class ScheduleConfig:
     """Polynomial decay schedule, stepped per update."""

@@ -9,9 +9,13 @@ tensors with a leading worker axis, on the env's device.
 * ``sample_reset_draws(generator)``: the random values a reset of all W
   workers consumes, drawn from an explicit generator. JAX's and PyTorch's
   generators differ, so tests hand ``reset`` the values the JAX env drew;
+* ``sample_step_draws(generator)``: the random values a step of all W
+  workers consumes, or None (the default) for an env whose step draws
+  nothing: such an env takes nothing from the generator;
 * ``reset(draws) -> (state, obs)``;
-* ``step(state, actions) -> (state, obs, reward, done, info)``: ``reward`` is
-  the training reward, ``info`` per-episode statistics read where ``done``.
+* ``step(state, actions, draws=None) -> (state, obs, reward, done, info)``:
+  ``draws`` from ``sample_step_draws``; ``reward`` is the training reward,
+  ``info`` per-episode statistics read where ``done``.
 
 Auto-reset lives in the rollout (``training/rollout.py``), with
 ``select_state``.
@@ -44,8 +48,11 @@ class TorchEnv:
     def sample_reset_draws(self, generator: torch.Generator) -> Any:
         raise NotImplementedError
 
+    def sample_step_draws(self, generator: torch.Generator) -> Any:
+        return None
+
     def reset(self, draws: Any):
         raise NotImplementedError
 
-    def step(self, state: Any, actions: torch.Tensor):
+    def step(self, state: Any, actions: torch.Tensor, draws: Any = None):
         raise NotImplementedError

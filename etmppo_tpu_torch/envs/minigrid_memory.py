@@ -239,7 +239,9 @@ class MinigridMemoryEnv(TorchEnv):
             reward_sum=torch.zeros(W, device=self.device), length=zeros)
         return state, self._observe(state)
 
-    def step(self, state: MinigridMemoryState, actions: torch.Tensor):
+    def step(self, state: MinigridMemoryState, actions: torch.Tensor,
+             draws=None):
+        del draws  # the step draws nothing
         W = state.pos.shape[0]
         a = actions[:, 0].long()
         d = torch.where(a == 0, (state.dir - 1) % 4,

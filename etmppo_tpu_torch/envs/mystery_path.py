@@ -190,7 +190,9 @@ class MysteryPathGridEnv(TorchEnv):
             reward_sum=torch.zeros(W, device=self.device), length=zeros)
         return state, self._observe(state)
 
-    def step(self, state: MysteryPathState, actions: torch.Tensor):
+    def step(self, state: MysteryPathState, actions: torch.Tensor,
+             draws=None):
+        del draws  # the step draws nothing
         W = state.pos.shape[0]
         w = torch.arange(W, device=self.device)
         new_pos = (state.pos + self._moves[actions[:, 0].long()]).clamp(

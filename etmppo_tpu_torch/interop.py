@@ -8,7 +8,9 @@ the ``state_dict`` of the matching ``ActorCriticModel``:
 * Conv ``kernel`` HWIO -> ``weight`` OIHW;
 * LayerNorm ``scale`` -> ``weight``, ``bias`` -> ``bias``;
 * GRU gate weights (in, out), ``bg`` and a learned ``pos_embedding`` as they
-  are;
+  are; a gate weight in the layout of earlier versions of the JAX package,
+  a bias-free Dense module ``{"kernel": (in, out)}`` (``models/poc-full.nn``),
+  is the same matrix;
 * ``block_i`` -> ``blocks.i``, ``policy_branch_i`` -> ``policy_branches.i``.
 
 ``lin_hidden`` needs no row permutation: the port flattens the CNN features
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 _INDEXED = re.compile(r"^(block|policy_branch)_(\d+)$")
+_GATE_WEIGHTS = {"Wr", "Wz", "Wg", "Ur", "Uz", "Ug"}
 _LIST_NAMES = {"block": "blocks", "policy_branch": "policy_branches"}
 _FLAX_NAMES = {v: k for k, v in _LIST_NAMES.items()}
 
@@ -54,6 +57,8 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 
     def visit(tree: Mapping, prefix: str):
         for key, value in tree.items():
+            if key in _GATE_WEIGHTS and isinstance(value, Mapping):
+                value = value["kernel"]
             if isinstance(value, Mapping):
                 visit(value, prefix + _module_name(key) + ".")
             else:

@@ -269,10 +269,10 @@ class Transformer(nn.Module):
         """k_win/v_win: (B, L, blocks, D) projected windows; mask: (B, L)."""
         h = self.embed(h)
         out_memories = []
-        for i, block in enumerate(self.blocks):
+        # unbind: one stacked backward, not a zero-filled window per block
+        for block, k, v in zip(self.blocks, k_win.unbind(2), v_win.unbind(2)):
             out_memories.append(h.detach())
-            h = block.attend_and_project(k_win[:, :, i], v_win[:, :, i], h,
-                                         mask)
+            h = block.attend_and_project(k, v, h, mask)
         return h, torch.stack(out_memories, dim=1)
 
     def forward_with_ops(self, h, ops: Sequence[Callable]

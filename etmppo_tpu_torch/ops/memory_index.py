@@ -7,10 +7,12 @@
 * ``memory_indices``: per episode step, the absolute episode slots of the
   sliding memory window.
 * The rollout writes each new memory item once to a tape; training windows
-  are rebuilt from (pre-rollout snapshot, tape) by index arithmetic. The
-  *timeline* of a worker is its memory writes in order, so every training
-  window is one contiguous run of timeline rows followed by one contiguous
-  run of positional-encoding-only rows (``compute_timeline_sources``).
+  are rebuilt from (pre-rollout snapshot, tape) by index arithmetic: a gather
+  of L rows per sample from ``[snapshot | tape | zero PE region]``
+  (``compute_window_sources``, the gathered-window loss), or, over the
+  *timeline* of a worker (its memory writes in order), one contiguous run of
+  timeline rows followed by one contiguous run of positional-encoding-only
+  rows (``compute_timeline_sources``, the window-attention kernels).
 """
 from __future__ import annotations
 
@@ -46,6 +48,44 @@ def _next_end(dones: torch.Tensor) -> torch.Tensor:
     done_step = torch.where(dones, steps[None, :], T - 1)
     return torch.flip(torch.cummin(torch.flip(done_step, [1]), dim=1).values,
                       [1])
+
+
+class WindowSources(NamedTuple):
+    """Per-sample window gather indices.
+
+    ``flat_index[w, t, j]`` indexes the per-worker source rows
+    ``[snapshot[w] | tape[w] | zero PE region]`` (``max_ep + T + max_ep``
+    rows). Never-written slots resolve to the zero PE region at their own
+    slot, so after the positional encoding is added they hold the
+    reference's zeros-plus-PE contents with a plain gather. ``valid`` is True
+    where the slot holds real memory; ``slot`` is the absolute episode slot
+    (the reference's ``memory_indices``).
+    """
+    flat_index: torch.Tensor  # (W, T, L) int32
+    valid: torch.Tensor       # (W, T, L) bool
+    slot: torch.Tensor        # (W, T, L) int32
+
+
+def compute_window_sources(episode_steps: torch.Tensor, dones: torch.Tensor,
+                           index_table: torch.Tensor, max_episode_steps: int
+                           ) -> WindowSources:
+    """episode_steps: (W, T) int; dones: (W, T) bool; index_table:
+    (max_ep, L) from ``build_memory_indices``.
+
+    Slot s of sample (w, t) at episode step e was (or will be) written at
+    rollout step ``t_s = t + s - e``: before the rollout (t_s < 0) it is
+    ``snapshot[w, s]``, else ``tape[w, t_s]``, valid while ``t_s`` is at most
+    the step at which the sample's episode ends (``_next_end``)."""
+    T = episode_steps.shape[1]
+    e = episode_steps.long()
+    slot = index_table[e].long()                                  # (W, T, L)
+    t = torch.arange(T, device=e.device)[None, :, None]
+    t_s = t + slot - e[:, :, None]
+    from_snapshot = t_s < 0
+    valid = from_snapshot | (t_s <= _next_end(dones)[:, :, None])
+    flat_index = torch.where(from_snapshot, slot, max_episode_steps + t_s)
+    flat_index = torch.where(valid, flat_index, max_episode_steps + T + slot)
+    return WindowSources(flat_index.int(), valid, slot.int())
 
 
 class TimelineSources(NamedTuple):

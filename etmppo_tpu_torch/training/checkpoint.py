@@ -61,11 +61,15 @@ def read_model_config(path: str) -> TrainConfig:
     return config_from_dict(_read_payload(path)["config"])
 
 
-def load_model(path: str, device="cpu") -> Tuple[torch.nn.Module, TrainConfig]:
-    """The saved model, rebuilt on ``device`` for its config's environment,
-    and that config."""
+def load_model(path: str, device="cuda"
+               ) -> Tuple[torch.nn.Module, TrainConfig]:
+    """The saved model, rebuilt on ``device`` (the CUDA device unless the
+    caller asks for another; raises without a GPU) for its config's
+    environment, and that config."""
     from ..envs.factory import create_env
     from ..models.actor_critic import ActorCriticModel
+    from .trainer import resolve_device
+    device = resolve_device(device)
     payload = _read_payload(path)
     config = config_from_dict(payload["config"])
     env = create_env(config.environment, 1, device)

@@ -1,5 +1,5 @@
 """PPO update: epochs x shuffled minibatches
-(counterpart of ``etmppo_tpu/training/ppo.py``, the window-attention path).
+(counterpart of ``etmppo_tpu/training/ppo.py``).
 
 The loss is the reference's: per-minibatch advantage normalisation (unbiased
 std + 1e-8), clipped surrogate, clipped value loss (max of the squared
@@ -9,13 +9,24 @@ most 1); AdamW (betas 0.9/0.999, eps 1e-8, decoupled weight decay 0.01) with
 the learning rate set each update. Gradient-norm telemetry reads the clipped
 gradients.
 
-Memory windows are never gathered: the update projects each worker's memory
-timeline once per minibatch, and each block's attention reads its window
-straight from the projected timeline (``ops/window_attention.py``, the CUDA
-forward kernel on the card). With ``pallas_backward`` the attention backward
-is the CUDA backward kernel too; without it, the plain PyTorch VJP. With
-``grouped`` (the JAX package's ``GROUPED_MODE``) the pair is the grouped one:
-the minibatch sorted by worker, and a backward free of atomics.
+The memory windows come from (pre-rollout snapshot, tape) by index math, in
+one of two ways, as ``use_pallas_attention`` says:
+
+* ``loss_gathered`` (JAX's ``_loss_fast``, ``use_pallas_attention: false``):
+  the per-worker sources ``[snapshot | tape | zero PE region]`` are projected
+  once per minibatch and each sample's K/V window is gathered from them
+  (``compute_window_sources``); the attention is plain PyTorch, as the JAX
+  package's is plain XLA there.
+* ``loss_timeline`` (JAX's ``_loss_pallas``): each worker's memory timeline
+  is projected once per minibatch, and each block's attention reads its
+  windows straight from it (``ops/window_attention.py``, the CUDA forward
+  kernel on the card). With ``pallas_backward`` the attention backward is
+  the CUDA backward kernel too; without it, the plain PyTorch VJP. With
+  ``grouped`` (the JAX package's ``GROUPED_MODE``) the pair is the grouped
+  one: the minibatch sorted by worker, and a backward free of atomics.
+
+``loss_window`` (JAX's ``_loss``) runs the model on the raw gathered windows;
+tests hold the other two against it.
 """
 from __future__ import annotations
 
@@ -28,7 +39,8 @@ from ..models.actor_critic import ActorCriticModel
 from ..ops import distributions
 from ..ops.memory_index import (build_memory_indices, build_memory_mask,
                                 build_timeline, build_timeline_slots,
-                                compute_timeline_sources)
+                                compute_timeline_sources,
+                                compute_window_sources)
 from ..ops.window_attention import (window_attention, window_attention_bwd,
                                     window_attention_bwd_grouped,
                                     window_attention_fwd,
@@ -103,6 +115,19 @@ def loss_from_outputs(logits, value, mb, clip_range: float, beta: float,
     return loss, stats
 
 
+def gather_windows(src: torch.Tensor, w_idx: torch.Tensor,
+                   flat_index: torch.Tensor) -> torch.Tensor:
+    """``src[w_idx[:, None], flat_index]``: (B, L, ...) rows of the
+    per-worker sources (W, S, ...). Taken with ``index_select`` over the
+    flattened sources, whose backward is an ``index_add_``, far cheaper on
+    the CPU than the ``index_put_`` behind advanced indexing."""
+    W, S = src.shape[:2]
+    rows = (w_idx.long()[:, None] * S + flat_index.long()).reshape(-1)
+    flat = src.reshape((W * S,) + tuple(src.shape[2:]))
+    return flat.index_select(0, rows).reshape(
+        tuple(flat_index.shape) + tuple(src.shape[2:]))
+
+
 class PPOUpdate:
     """One PPO update of ``model`` from a rollout batch. The per-epoch
     permutations come from ``generator`` unless the caller passes them.
@@ -112,10 +137,6 @@ class PPOUpdate:
     def __init__(self, config: TrainConfig, model: ActorCriticModel,
                  max_episode_steps: int, generator: torch.Generator,
                  grouped: bool = False):
-        if not config.use_pallas_attention:
-            raise NotImplementedError(
-                "only the window-attention loss is ported "
-                "(use_pallas_attention: true)")
         self.config = config
         self.model = model
         self.max_ep = max_episode_steps
@@ -135,8 +156,10 @@ class PPOUpdate:
             build_memory_indices(max_episode_steps, L), device=device)
         self.optimizer = make_optimizer(model)
 
-    def loss(self, mb, timeline, timeline_slots, clip_range: float,
-             beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    # --- losses: (mb, per-worker memory, its slots, clip, beta) -----------
+
+    def loss_timeline(self, mb, timeline, timeline_slots, clip_range: float,
+                      beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
         """Projects the timeline once, then each block's attention reads its
         windows from it through the window-attention op."""
         trx = self.config.transformer
@@ -156,8 +179,52 @@ class PPOUpdate:
         return loss_from_outputs(logits, value, mb, clip_range, beta,
                                  self.config.value_loss_coefficient)
 
-    def prepare(self, batch: RolloutBatch):
-        """Timeline, its slots and the flattened per-sample fields."""
+    def loss_gathered(self, mb, src, src_slots, clip_range: float,
+                      beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Projects the sources once, then gathers each sample's projected
+        K/V window from them."""
+        k_src, v_src = self.model.project_memory(src, src_slots)
+        w_idx, rows = mb["w_idx"], mb["flat_index"]
+        logits, value, _ = self.model.forward_with_kv(
+            mb["obs"], gather_windows(k_src, w_idx, rows),
+            gather_windows(v_src, w_idx, rows), mb["memory_mask"])
+        return loss_from_outputs(logits, value, mb, clip_range, beta,
+                                 self.config.value_loss_coefficient)
+
+    def loss_window(self, mb, src, src_slots, clip_range: float,
+                    beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The model on each sample's raw memory window, gathered from the
+        sources (projections inside the model)."""
+        del src_slots  # the window's slots are mb["slot"]
+        window = gather_windows(src, mb["w_idx"], mb["flat_index"])
+        logits, value, _ = self.model(mb["obs"], window, mb["memory_mask"],
+                                      mb["slot"])
+        return loss_from_outputs(logits, value, mb, clip_range, beta,
+                                 self.config.value_loss_coefficient)
+
+    def loss(self, mb, memory, memory_slots, clip_range: float, beta: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The config's loss: ``loss_timeline`` with
+        ``use_pallas_attention``, else ``loss_gathered``."""
+        fn = (self.loss_timeline if self.config.use_pallas_attention
+              else self.loss_gathered)
+        return fn(mb, memory, memory_slots, clip_range, beta)
+
+    # --- batch preparation: (memory, memory_slots, per-sample fields) -----
+
+    def _fields(self, batch: RolloutBatch, **extra):
+        L = self.config.transformer.memory_length
+        fields = dict(
+            obs=batch.obs, actions=batch.actions, log_probs=batch.log_probs,
+            values=batch.values, advantages=batch.advantages,
+            memory_mask=self.mask_table[batch.episode_steps.clamp(0, L - 1)],
+            **extra)
+        return {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                for k, v in fields.items()}
+
+    def prepare_timeline(self, batch: RolloutBatch):
+        """The timeline, its slots and the flattened per-sample fields with
+        the window-attention addressing (``tl_*``)."""
         L = self.config.transformer.memory_length
         timeline = build_timeline(batch.snapshot, batch.tape,
                                   batch.episode_steps[:, 0], pad=L)
@@ -165,16 +232,33 @@ class PPOUpdate:
                                               self.max_ep, pad=L)
         tl = compute_timeline_sources(batch.episode_steps, batch.dones,
                                       self.index_table, L)
-        flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
-        fields = dict(
-            obs=flat(batch.obs), actions=flat(batch.actions),
-            log_probs=flat(batch.log_probs), values=flat(batch.values),
-            advantages=flat(batch.advantages),
-            memory_mask=self.mask_table[
-                flat(batch.episode_steps).clamp(0, L - 1)],
-            tl_start=flat(tl.start), tl_n_valid=flat(tl.n_valid),
-            tl_s_lo=flat(tl.s_lo))
-        return timeline, timeline_slots, fields
+        return timeline, timeline_slots, self._fields(
+            batch, tl_start=tl.start, tl_n_valid=tl.n_valid, tl_s_lo=tl.s_lo)
+
+    def prepare_gathered(self, batch: RolloutBatch):
+        """The sources ``[snapshot | tape | zero PE region]``, their absolute
+        episode slots (snapshot and PE rows at their slot, tape rows at the
+        episode step they were written) and the flattened per-sample fields
+        with the gather indices."""
+        W = batch.episode_steps.shape[0]
+        sources = compute_window_sources(batch.episode_steps, batch.dones,
+                                         self.index_table, self.max_ep)
+        src = torch.cat([batch.snapshot, batch.tape,
+                         torch.zeros_like(batch.snapshot)], dim=1)
+        slot_range = torch.arange(
+            self.max_ep, dtype=torch.int32,
+            device=src.device)[None].expand(W, -1)
+        src_slots = torch.cat([slot_range, batch.episode_steps.int(),
+                               slot_range], dim=1)
+        return src, src_slots, self._fields(
+            batch, flat_index=sources.flat_index, valid=sources.valid,
+            slot=sources.slot)
+
+    def prepare(self, batch: RolloutBatch):
+        """The config's preparation, for ``loss``."""
+        return (self.prepare_timeline(batch)
+                if self.config.use_pallas_attention
+                else self.prepare_gathered(batch))
 
     def minibatch(self, fields, idx: torch.Tensor):
         mb = {k: v[idx] for k, v in fields.items()}
@@ -189,8 +273,8 @@ class PPOUpdate:
         groups), as tensors on the device."""
         cfg = self.config
         B = cfg.batch_size
-        timeline, timeline_slots, fields = self.prepare(batch)
-        device = timeline.device
+        memory, memory_slots, fields = self.prepare(batch)
+        device = memory.device
         if perms is None:
             perms = torch.stack([
                 torch.randperm(B, generator=self.generator, device=device)
@@ -204,7 +288,7 @@ class PPOUpdate:
         groups_sum: Dict[str, torch.Tensor] = {}
         for idx in mb_indices:
             mb = self.minibatch(fields, idx)
-            loss, stats = self.loss(mb, timeline, timeline_slots, clip_range,
+            loss, stats = self.loss(mb, memory, memory_slots, clip_range,
                                     beta)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()

@@ -7,7 +7,8 @@ Every new memory item is also written once to a tape; training rebuilds its
 windows from (pre-rollout snapshot, tape).
 
 Step order: store obs / episode step -> policy forward -> write the memory
-item at ``(w, episode_step)`` -> sample actions -> env step -> where done:
+item at ``(w, episode_step)`` -> sample actions -> env step (with its step
+draws) -> where done:
 reset the env, zero the worker's memory, reset its K/V caches to the
 PE-only projections and its episode step to 0.
 """
@@ -49,8 +50,9 @@ class RolloutBatch(NamedTuple):
 
 class RolloutFn:
     """Collects ``worker_steps`` steps of all workers with ``model``. Random
-    draws (actions, env resets) come from ``generator``, on the env's
-    device."""
+    draws come from ``generator``, on the env's device, in this order at
+    each step: the actions, then the env's step draws (none for an env whose
+    step draws nothing), then the reset draws of all workers."""
 
     def __init__(self, config: TrainConfig, env: TorchEnv,
                  model: ActorCriticModel, generator: torch.Generator):
@@ -81,6 +83,9 @@ class RolloutFn:
 
     def reset_draws(self):
         return self.env.sample_reset_draws(self.generator)
+
+    def step_draws(self):
+        return self.env.sample_step_draws(self.generator)
 
     def sample_actions(self, logits, step: int):
         del step
@@ -132,7 +137,7 @@ class RolloutFn:
             actions, log_probs = self.sample_actions(logits, t)
 
             env_state, obs_next, reward, done, info = self.env.step(
-                env_state, actions)
+                env_state, actions, self.step_draws())
             reset_state, reset_obs = self.env.reset(self.reset_draws())
             env_state = select_state(done, reset_state, env_state)
             obs_next = torch.where(

@@ -8,14 +8,19 @@ checkpoint every ``checkpoint_interval`` updates and the final model as
 latest checkpoint of the run.
 
 What the JAX package runs as fused device programs (``training/fused.py``)
-has no counterpart: PyTorch runs eagerly. The kernel choice is this
+has no counterpart: PyTorch runs eagerly. The loss and kernel choice is this
 trainer's (``config.use_pallas_attention``, ``config.pallas_backward``, and
-the keyword ``grouped`` for the grouped pair), not a module global.
+the keyword ``grouped`` for the grouped pair), not a module global:
+``pallas_backward`` without ``use_pallas_attention`` warns and takes the
+gathered-window loss, as in the JAX package. Each update's rollout and PPO
+update are the spans ``rollout`` and ``ppo_update`` of a profiler trace
+(``utils/profiling.py``).
 """
 from __future__ import annotations
 
 import os
 import time
+import warnings
 from collections import deque
 from typing import Any, Dict, List
 
@@ -25,6 +30,7 @@ import torch
 from ..config import TrainConfig
 from ..envs.factory import create_env
 from ..models.actor_critic import ActorCriticModel
+from ..utils.profiling import annotate
 from . import metrics as metrics_lib
 from .checkpoint import Checkpointer, save_model
 from .ppo import STAT_NAMES, PPOUpdate
@@ -54,6 +60,11 @@ class PPOTrainer:
                  device="cuda", enable_metrics: bool = True,
                  grouped: bool = False):
         _check_supported(config)
+        if config.pallas_backward and not config.use_pallas_attention:
+            warnings.warn(
+                "pallas_backward=True has no effect without "
+                "use_pallas_attention=True; the gathered-window loss (plain "
+                "PyTorch attention) is used.")
         self.config = config
         self.run_id = run_id
         self.device = resolve_device(device)
@@ -95,8 +106,10 @@ class PPOTrainer:
         beta = cfg.beta_schedule.value(self.update)
         clip_range = cfg.clip_range_schedule.value(self.update)
 
-        self.rollout_state, batch = self.rollout_fn(self.rollout_state)
-        stats, grad_info = self.update_fn(batch, lr, clip_range, beta)
+        with annotate("rollout"):
+            self.rollout_state, batch = self.rollout_fn(self.rollout_state)
+        with annotate("ppo_update"):
+            stats, grad_info = self.update_fn(batch, lr, clip_range, beta)
 
         self.episode_infos.extend(self._extract_episode_infos(
             batch.dones.cpu().numpy(),

@@ -46,7 +46,9 @@ torch.set_num_threads(1)
 torch.backends.cudnn.allow_tf32 = False
 
 ARTIFACTS = sorted(glob.glob("models/*.nn"))
-PORTED_ENVS = ("Minigrid", "MysteryPath-Grid", "MortarMayhem-Grid")
+PORTED_ENVS = ("Minigrid", "MysteryPath-Grid", "MortarMayhem-Grid",
+               "PocMemoryEnv", "CartPole", "CartPoleMasked",
+               "SearingSpotlights")
 
 
 def _payload(path):
@@ -127,7 +129,7 @@ def test_every_artifact_config_reads_like_the_jax_package(path):
 @pytest.mark.parametrize("path", [p for p in ARTIFACTS if _payload(p)[
     "config"]["environment"]["type"] in PORTED_ENVS])
 def test_load_model_gives_the_artifact_weights(path):
-    model, config = load_model(path)
+    model, config = load_model(path, device="cpu")
     assert config == read_model_config(path)
     tree = serialization.msgpack_restore(_payload(path)["params_bytes"])
     want = flax_to_state_dict(tree)
@@ -135,6 +137,18 @@ def test_load_model_gives_the_artifact_weights(path):
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def test_every_committed_artifact_loads():
+    assert len(ARTIFACTS) == 19
+    assert all(_payload(p)["config"]["environment"]["type"] in PORTED_ENVS
+               for p in ARTIFACTS)
+
+
+def test_load_model_needs_a_gpu_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model("models/poc-full.nn")
 
 
 def test_load_model_refuses_a_pickled_class(tmp_path):
@@ -149,9 +163,11 @@ def test_load_model_refuses_a_pickled_class(tmp_path):
 
 @pytest.mark.parametrize("path", ["models/minigrid-tpu.nn",
                                   "models/mpg-gtrxl.nn", "models/mmg-full.nn",
-                                  "models/mmg-s1.nn"])
+                                  "models/mmg-s1.nn",
+                                  "models/cartpole-full.nn",
+                                  "models/ss-full.nn"])
 def test_loaded_model_forward_matches_jax(path):
-    model, config = load_model(path)
+    model, config = load_model(path, device="cpu")
     params, jconfig = jax_checkpoint.load_model(path)
     env = jax_create_env(jconfig.environment)
     jmodel = JModel(config=jconfig, obs_shape=env.observation_shape,
@@ -171,6 +187,41 @@ def test_loaded_model_forward_matches_jax(path):
             *map(torch.as_tensor, (obs, memory, mask, indices)))
     for t, j in zip(t_logits + [t_value, t_mem], list(j_logits) + [j_value,
                                                                   j_mem]):
+        j = np.asarray(j)
+        np.testing.assert_allclose(t.numpy(), j, rtol=0,
+                                   atol=1e-5 * np.abs(j).max())
+
+
+def test_legacy_gate_layout_loads_and_matches_jax():
+    """poc-full.nn stores its GRU gate weights as bias-free Dense modules
+    (``{"kernel": (in, out)}``), an earlier layout the JAX model no longer
+    takes. The port reads the same matrices; its forward matches the JAX
+    model's on those weights in the current layout."""
+    path = "models/poc-full.nn"
+    tree = serialization.msgpack_restore(_payload(path)["params_bytes"])
+    gate = tree["params"]["transformer"]["block_0"]["gate1"]
+    assert set(gate["Wr"]) == {"kernel"}
+    model, config = load_model(path, device="cpu")
+    assert torch.equal(model.transformer.blocks[0].gate1.Wr,
+                       torch.as_tensor(np.array(gate["Wr"]["kernel"])))
+    jparams = state_dict_to_flax(model.state_dict())
+    env = jax_create_env(jax_checkpoint.read_model_config(path).environment)
+    jmodel = JModel(config=jax_checkpoint.read_model_config(path),
+                    obs_shape=env.observation_shape,
+                    action_branches=env.action_branches,
+                    max_episode_steps=env.max_episode_steps)
+    rng = np.random.default_rng(0)
+    B, L = 4, config.transformer.memory_length
+    obs = rng.normal(size=(B, 3)).astype(np.float32)
+    memory = rng.normal(size=(B, L, 4, 64)).astype(np.float32)
+    mask = rng.random((B, L)) < 0.6
+    indices = rng.integers(0, env.max_episode_steps, (B, L)).astype(np.int32)
+    j_logits, j_value, _ = jmodel.apply(
+        jparams, *map(jnp.asarray, (obs, memory, mask, indices)))
+    with torch.no_grad():
+        t_logits, t_value, _ = model(
+            *map(torch.as_tensor, (obs, memory, mask, indices)))
+    for t, j in ((t_logits[0], j_logits[0]), (t_value, j_value)):
         j = np.asarray(j)
         np.testing.assert_allclose(t.numpy(), j, rtol=0,
                                    atol=1e-5 * np.abs(j).max())
@@ -205,7 +256,7 @@ def test_the_jax_package_loads_what_the_port_saves(tmp_path, env):
     _assert_trees_equal(jax.tree.map(np.asarray, params),
                         state_dict_to_flax(trainer.model.state_dict()))
     assert dataclasses.asdict(jconfig) == dataclasses.asdict(config)
-    model, _ = load_model(path)
+    model, _ = load_model(path, device="cpu")
     for k, v in trainer.model.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
 

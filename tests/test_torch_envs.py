@@ -159,4 +159,4 @@ def test_factory():
     assert env.observation_shape == (84, 84, 3) and env.n_workers == 4
     assert env.action_branches == (3,) and env.max_episode_steps == 96
     with pytest.raises(NotImplementedError):
-        create_env(EnvConfig(type="PocMemoryEnv"), 4, "cpu")
+        create_env(EnvConfig(type="Minigrid-host"), 4, "cpu")

@@ -8,6 +8,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -15,7 +16,11 @@ import yaml
 
 from etmppo_tpu.config import load_config as jax_load_config
 from etmppo_tpu_torch import cli
-from etmppo_tpu_torch.config import (MINIGRID_FLAGSHIP, MYSTERY_PATH_GRID,
+from etmppo_tpu_torch.config import (CARTPOLE_MASKED, MINIGRID_FLAGSHIP,
+                                     MORTAR_MAYHEM_GRID, MYSTERY_PATH_GRID,
+                                     POC_MEMORY, SEARING_SPOTLIGHTS,
+                                     SEARING_SPOTLIGHTS_BETA,
+                                     SEARING_SPOTLIGHTS_SHAPED,
                                      config_from_dict, config_to_dict,
                                      load_config)
 from etmppo_tpu_torch.ops.window_attention import window_attention_fwd
@@ -41,15 +46,26 @@ def _tiny(tmp_path, **overrides):
     return raw
 
 
-@pytest.mark.parametrize("raw,path", [
-    (MINIGRID_FLAGSHIP, "etmppo_tpu/configs/minigrid.yaml"),
-    (MYSTERY_PATH_GRID, "etmppo_tpu/configs/mystery_path_grid.yaml"),
+@pytest.mark.parametrize("raw,path,kernels", [
+    (MINIGRID_FLAGSHIP, "etmppo_tpu/configs/minigrid.yaml", True),
+    (MYSTERY_PATH_GRID, "etmppo_tpu/configs/mystery_path_grid.yaml", True),
+    (MORTAR_MAYHEM_GRID, "etmppo_tpu/configs/mortar_mayhem_grid.yaml", True),
+    (POC_MEMORY, "etmppo_tpu/configs/poc_memory_env.yaml", False),
+    (CARTPOLE_MASKED, "etmppo_tpu/configs/cartpole.yaml", False),
+    (SEARING_SPOTLIGHTS, "etmppo_tpu/configs/searing_spotlights.yaml", True),
+    (SEARING_SPOTLIGHTS_BETA,
+     "etmppo_tpu/configs/searing_spotlights_beta.yaml", True),
+    (SEARING_SPOTLIGHTS_SHAPED,
+     "etmppo_tpu/configs/searing_spotlights_shaped.yaml", True),
 ])
-def test_flagship_dicts_are_exactly_their_yaml(raw, path):
+def test_flagship_dicts_are_exactly_their_yaml(raw, path, kernels):
+    """``kernels``: the config runs the window-attention kernel pair (else
+    the gathered-window loss)."""
     with open(path) as f:
         assert raw == yaml.safe_load(f)
-    assert config_from_dict(raw) == load_config(path)
-    assert config_from_dict(raw).pallas_backward
+    config = config_from_dict(raw)
+    assert config == load_config(path)
+    assert config.use_pallas_attention == config.pallas_backward == kernels
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob("etmppo_tpu/configs/*.yaml")))
@@ -102,7 +118,7 @@ def test_trainer_is_deterministic_given_the_seed(tmp_path):
     (dict(num_devices=2), "num_devices"),
     (dict(compute_dtype="bfloat16"), "float32"),
     (dict(obs_uint8=True), "obs_uint8"),
-    (dict(environment={"type": "CartPole"}), "CartPole"),
+    (dict(environment={"type": "CartPole-native"}), "CartPole-native"),
 ])
 def test_trainer_refuses_unported_options(tmp_path, overrides, match):
     cfg = config_from_dict(_tiny(tmp_path, **overrides))
@@ -139,6 +155,87 @@ def test_cli_without_cpu_flag_needs_a_gpu(tmp_path, monkeypatch):
         cli.train_main([f"--config={path}"])
 
 
+def test_cli_profile_and_seeds(tmp_path, capsys):
+    """--seeds 2 trains seeds 0 and 1 as <run-id>_s<seed> and prints the
+    mean and std of their final reward; --profile writes a Chrome trace of
+    each run, with the trainer's rollout and PPO update spans."""
+    from etmppo_tpu_torch.utils.profiling import TRACE_FILE, device_busy
+    path = tmp_path / "poc.json"
+    path.write_text(json.dumps(dict(
+        POC_MEMORY, n_workers=2, worker_steps=32, n_mini_batch=2, epochs=1,
+        hidden_layer_size=16,
+        transformer=dict(POC_MEMORY["transformer"], num_blocks=2,
+                         embed_dim=16),
+        summary_dir=str(tmp_path / "summaries"),
+        checkpoint_dir=str(tmp_path / "models"))))
+    prof = tmp_path / "prof"
+    result = cli.train_main([f"--config={path}", "--run-id=s", "--cpu",
+                             "--updates=2", "--seeds=2",
+                             f"--profile={prof}"])
+    out = capsys.readouterr().out
+    assert "[2 seeds] final reward_mean: " in out and "+/-" in out
+    assert out.count("pi_loss=") == 4 and result["env_steps_per_second"] > 0
+    for seed in (0, 1):
+        assert os.path.exists(tmp_path / "models" / f"s_s{seed}.nn")
+        with open(prof / f"s_s{seed}" / TRACE_FILE) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert {"rollout", "ppo_update"} <= names
+        shares = device_busy(str(prof / f"s_s{seed}" / TRACE_FILE),
+                             ["rollout", "ppo_update"])
+        assert shares["total"]["wall_s"] >= shares["rollout"]["wall_s"] > 0
+        assert shares["total"]["busy_s"] == 0.0      # no device on the CPU
+    assert not (tmp_path / "models" / "s.nn").exists()
+
+
+def test_trace_and_device_busy(tmp_path):
+    """``trace`` writes a Chrome trace holding the ``annotate`` spans;
+    ``device_busy`` takes the union of device intervals within each span's
+    window (here a synthetic trace: two overlapping kernels, a copy that
+    crosses from the first window into the second, a kernel that runs past
+    the host's last span, and one before the first)."""
+    from etmppo_tpu_torch.utils.profiling import (TRACE_FILE, annotate,
+                                                  device_busy, trace)
+    with trace(str(tmp_path / "t")):
+        with annotate("outer"):
+            torch.ones(4).sum()
+    with open(tmp_path / "t" / TRACE_FILE) as f:
+        assert "outer" in {e.get("name") for e in json.load(f)["traceEvents"]}
+
+    def ev(cat, name, ts, dur):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+    events = [ev("user_annotation", "a", 100, 50),
+              ev("user_annotation", "b", 150, 40),
+              ev("user_annotation", "a", 400, 10),      # a later "a": ignored
+              ev("kernel", "k1", 110, 20), ev("kernel", "k2", 120, 20),
+              ev("gpu_memcpy", "c", 145, 10), ev("kernel", "k3", 180, 30),
+              ev("kernel", "k0", 10, 50), ev("cpu_op", "x", 100, 100)]
+    path = tmp_path / "synthetic.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    got = device_busy(str(path), ["a", "b"])
+    # a: [100, 150): k1 + k2 cover 110-140, the copy 145-150 -> 35 us
+    # b: [150, 210): the copy 150-155, k3 180-210 -> 35 us
+    assert got["a"]["wall_s"] == pytest.approx(50e-6)
+    assert got["a"]["busy_s"] == pytest.approx(35e-6)
+    assert got["b"]["wall_s"] == pytest.approx(60e-6)
+    assert got["b"]["busy_s"] == pytest.approx(35e-6)
+    assert got["total"]["busy_share"] == pytest.approx(70 / 110)
+    with pytest.raises(ValueError, match="no span"):
+        device_busy(str(path), ["a", "missing"])
+
+
+def test_timer_means_per_span():
+    from etmppo_tpu_torch.utils.profiling import Timer
+    timer = Timer()
+    for _ in range(3):
+        with timer.span("a"):
+            pass
+    with timer.span("b"):
+        time.sleep(0.01)
+    summary = timer.summary()
+    assert set(summary) == {"a", "b"} and timer.counts["a"] == 3
+    assert summary["b"] >= 0.01 and summary["a"] < summary["b"]
+
+
 def test_package_never_imports_jax_or_the_jax_package():
     forbidden = re.compile(
         r"^\s*(import|from)\s+(jax|flax|msgpack|optax|yaml|etmppo_tpu)"
@@ -162,7 +259,11 @@ def test_importing_the_port_loads_no_jax():
             "etmppo_tpu_torch.training.trainer, "
             "etmppo_tpu_torch.training.checkpoint, "
             "etmppo_tpu_torch.envs.mystery_path, "
-            "etmppo_tpu_torch.envs.mortar_mayhem; "
+            "etmppo_tpu_torch.envs.mortar_mayhem, "
+            "etmppo_tpu_torch.envs.poc_memory, "
+            "etmppo_tpu_torch.envs.cartpole, "
+            "etmppo_tpu_torch.envs.searing_spotlights, "
+            "etmppo_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'msgpack', 'optax', 'yaml', 'etmppo_tpu')]; "
             "assert not bad, bad")

@@ -308,16 +308,3 @@ def test_update_draws_its_own_permutations():
     stats, groups = update(_torch_batch(batch), LR, CLIP, BETA)
     assert stats.shape == (len(STAT_NAMES),) and torch.isfinite(stats).all()
     assert all(torch.isfinite(v) for v in groups.values())
-
-
-@pytest.mark.parametrize("overrides,match", [
-    (dict(use_pallas_attention=False), "window-attention"),
-])
-def test_update_refuses_unported_paths(overrides, match):
-    jcfg = _jax_config()
-    tcfg = dataclasses.replace(_torch_config(jcfg), **overrides)
-    env = MinigridMemoryEnv(jcfg.environment.name, 2, "cpu")
-    model = ActorCriticModel(tcfg, env.observation_shape, env.action_branches,
-                             env.max_episode_steps, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        PPOUpdate(tcfg, model, env.max_episode_steps, generator=None)
