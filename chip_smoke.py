@@ -100,6 +100,39 @@ Phases, each printing one line with its seconds:
 9. cartpole:    three PPO updates of masked-velocity CartPole exactly as its
                 YAML says (16 workers x 256 steps, GTrXL 4 x 128, 4 epochs x
                 4 minibatches), the same way.
+10. serve:      PolicyServer with 64 streams of the committed MiniGrid
+                flagship (models/minigrid-r3_s0.nn: CNN on 84x84x3, TrXL 3 x
+                384, memory 64) and of Mortar Mayhem Grid (mmg-full.nn,
+                memory 118), greedy: 12 (6) steps on the env's observations,
+                with a reset of some streams mid-run and an inactive mask,
+                held against the raw-memory formulation (model.forward over
+                memory[index_table[t]]): actions equal, values within
+                SERVE_RTOL; step_many over 16 steps against 16 step_device
+                calls from the same state; one step_device with every stream
+                at t == max_episode_steps (the clamped window and PE slot).
+                Prints policy-steps/s (streams x steps / s) over 1,000 steps
+                of each of step (a host sync per step), step_device (no sync
+                but the reset's every 50 steps) and step_many (50 steps a
+                call), the FLOPs of a step (counted_flops) and its MFU; serve-busy traces 20 step_device calls and
+                prints the device's busy share, kernels per step and the
+                operators with the most device time.
+11. evaluate:   evaluate_protocol over models/minigrid-r3_s0..s4.nn, 50
+                episodes x 1 repeat each: the cross-seed success IQM must be
+                1.0 and the reward IQM within 0.02 of 0.9685 (RESULTS.md's
+                task result, not a speed); prints the CI, the seconds and
+                episodes/s.
+12. enjoy:      run_episodes on the flagship with rendering: the GIF must
+                start with GIF89a and hold episode length + 1 images
+                (counted by walking its blocks).
+13. serve-http: serve() with 64 streams of the flagship on an ephemeral
+                port in a thread: /info, /reset, a binary /step and a binary
+                /step_many (X-T) must answer as a local PolicyServer in the
+                same state; prints requests/s and policy-steps/s over the
+                wire.
+No window-attention kernel may launch in phases 10-13. The flagship phase
+(4) also prints flagship-mfu: the FLOPs of a PPO update (counted_flops of
+one minibatch's forward and backward, plus window_attention_flops for the
+kernel pair, times the minibatches) over its measured seconds.
 
 Then it prints the kernel table as one JSON line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result line.
@@ -110,15 +143,20 @@ import contextlib
 import copy
 import csv
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 REPLACES = {
@@ -152,6 +190,27 @@ MYSTERY_LAUNCHES = 48          # per update: 2 blocks x 3 epochs x 8 minibatches
 MORTAR_LAUNCHES = 72           # per update: 3 blocks x 3 epochs x 8 minibatches
 SEARING_LAUNCHES = 48          # per update: 2 blocks x 3 epochs x 8 minibatches
 POC_UPDATES = 30               # PocMemory's learning run
+# Serving (phases 10-13), on committed artifacts under models/.
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FLAGSHIP_NN = "minigrid-r3_s0.nn"
+SERVE_STREAMS = 64
+SERVE_MODELS = ((FLAGSHIP_NN, 12), ("mmg-full.nn", 6))   # (file, held steps)
+SERVE_MANY_STEPS = 16
+SERVE_TIMED_STEPS = 1000       # timed per entry point, a few seconds each
+SERVE_RESET_EVERY = 50         # steps; under every artifact's episode length
+# Served values against the raw-memory formulation, relative to the largest
+# value: the same float32 products in other shapes and orders (the K/V of a
+# memory item projected once, or again inside the forward).
+SERVE_RTOL = 1e-4
+HTTP_STEPS = 200               # binary /step requests timed
+HTTP_MANY = (40, 8)            # binary /step_many requests timed, T each
+EVAL_MODELS = tuple(f"minigrid-r3_s{i}.nn" for i in range(5))
+EVAL_EPISODES = 50
+# The MiniGrid flagship's 5-seed task result (RESULTS.md:39: cross-seed
+# success IQM 1.0, reward IQM 0.9685 over 1,250 episodes); one repeat of 50
+# episodes per seed must land within EVAL_REWARD_TOL of it.
+EVAL_REWARD_IQM = 0.9685
+EVAL_REWARD_TOL = 0.02
 # (W, T, max_episode_steps, L, D, B) of the minibatches of the four
 # configurations that run the kernels.
 SHAPES = {"flagship": (16, 512, 96, 64, 384, 1024),
@@ -677,6 +736,9 @@ def run_flagship(device, k) -> list:
             phase("trainer-split", t, detail)
             phase("trainer-busy", t, busy_line(
                 per_update[1], shares, rollout_s, mean["kernel backward"]))
+            t = time.perf_counter()
+            phase("flagship-mfu", t, update_mfu(trainer, batch,
+                                                mean["kernel backward"]))
         finally:
             trainer.close()
     return launches
@@ -986,6 +1048,398 @@ def run_gathered(device, k, name: str, raw: dict, updates: int,
             trainer.close()
 
 
+def artifact(name: str) -> str:
+    """A committed model artifact of the checkout."""
+    path = os.path.join(ROOT, "models", name)
+    if not os.path.exists(path):
+        raise RuntimeError(f"{path}: the committed artifact is missing")
+    return path
+
+
+def hold_raw_memory(server, steps: int, gen) -> str:
+    """``steps`` greedy steps of ``server`` (all streams) on its env's
+    observations, the env stepped with the served actions, with a third of
+    the streams reset half-way and the odd streams inactive every fourth
+    step; each step held against the raw-memory formulation
+    (``model.forward`` over ``memory[index_table[t]]``, ``memory[t] =
+    new_memory`` where active): actions equal, values within SERVE_RTOL of
+    the largest."""
+    from etmppo_tpu_torch.envs.factory import create_env
+    from etmppo_tpu_torch.ops.memory_index import (build_memory_indices,
+                                                   build_memory_mask)
+    model, config, dev = server.model, server.config, server.device
+    trx = config.transformer
+    M, L, max_ep = server.max_streams, trx.memory_length, \
+        server.max_episode_steps
+    env = create_env(config.environment, M, dev)
+    state, obs = env.reset(env.sample_reset_draws(gen))
+    index_table = torch.as_tensor(build_memory_indices(max_ep, L),
+                                  device=dev).long()
+    mask_table = torch.as_tensor(build_memory_mask(L), device=dev)
+    memory = torch.zeros(M, max_ep, trx.num_blocks, trx.embed_dim, device=dev)
+    t = torch.zeros(M, dtype=torch.int64, device=dev)
+    rows = torch.arange(M, device=dev)
+    server.reset(range(M))
+    worst = 0.0
+    for step in range(steps):
+        active = torch.ones(M, dtype=torch.bool, device=dev)
+        if step % 4 == 3:
+            active[1::2] = False
+        if step == steps // 2:
+            server.reset(range(0, M, 3))
+            memory[0::3] = 0.0
+            t[0::3] = 0
+        actions, values = server.step(obs, active.cpu().numpy())
+        with torch.no_grad():
+            idx = index_table[t]
+            logits, value_raw, new_memory = model(
+                obs, memory[rows[:, None], idx],
+                mask_table[t.clamp(0, L - 1)], idx)
+        memory[rows[active], t[active]] = new_memory[active]
+        t = t + active.long()
+        greedy = torch.stack([lg.argmax(dim=-1) for lg in logits], dim=-1)
+        if not np.array_equal(actions, greedy.cpu().numpy()):
+            raise RuntimeError(f"serve, step {step}: greedy actions differ "
+                               "from the raw-memory formulation's")
+        err = (torch.as_tensor(values, device=dev) - value_raw).abs().max()
+        tol = SERVE_RTOL * max(1.0, value_raw.abs().max().item())
+        if not err.item() <= tol:
+            raise RuntimeError(f"serve, step {step}: values differ from the "
+                               f"raw-memory formulation's by {err.item()} > "
+                               f"{tol}")
+        worst = max(worst, err.item())
+        state, obs, _, _, _ = env.step(state, torch.as_tensor(
+            actions, device=dev), env.sample_step_draws(gen))
+    if not np.array_equal(server.steps, t.cpu().numpy()):
+        raise RuntimeError("serve: step counters differ from the raw path's")
+    return (f"{steps} steps held against the raw-memory path: actions equal, "
+            f"max value diff {worst:.3e}")
+
+
+def hold_step_many(path: str, device, gen, obs_shape) -> str:
+    """``step_many`` over SERVE_MANY_STEPS steps against as many
+    ``step_device`` calls of a second server from the same state; then the
+    second server driven to ``t == max_episode_steps`` on every stream and
+    stepped once more (the clamped window start and PE slot)."""
+    from etmppo_tpu_torch.serve import PolicyServer
+    M, T = SERVE_STREAMS, SERVE_MANY_STEPS
+    one, many = (PolicyServer(path, M, greedy=True, device=device)
+                 for _ in range(2))
+    for server in (one, many):
+        server.reset(range(M))
+    obs_seq = torch.rand((T, M) + tuple(obs_shape), generator=gen,
+                         device=device)
+    singles = [one.step_device(obs) for obs in obs_seq]
+    actions, values = many.step_many(obs_seq)
+    err = (values - torch.stack([v for _, v in singles])).abs().max().item()
+    if not (torch.equal(actions, torch.stack([a for a, _ in singles]))
+            and err <= 1e-5 and np.array_equal(one.steps, many.steps)):
+        raise RuntimeError(f"serve: step_many differs from {T} step_device "
+                           f"calls (values by {err})")
+    max_ep = one.max_episode_steps
+    for _ in range(max_ep - T):
+        one.step_device(obs_seq[0])
+    _, frozen = one.step_device(obs_seq[0])
+    torch.cuda.synchronize()
+    if not (list(one.steps) == [max_ep] * M
+            and torch.isfinite(frozen).all()):
+        raise RuntimeError("serve: a step at t == max_episode_steps did not "
+                           "freeze the streams")
+    return (f"step_many({T}) equals {T} step_device calls (max value diff "
+            f"{err:.1e}); a step at t == max_episode_steps={max_ep} froze "
+            "every stream")
+
+
+def serving_rates(server, gen) -> str:
+    """Policy-steps/s (streams x steps / s) over SERVE_TIMED_STEPS steps of
+    each of ``step`` (host observations, a host sync per step),
+    ``step_device`` (observations on the card) and ``step_many``
+    (SERVE_RESET_EVERY steps a call), every stream reset each
+    SERVE_RESET_EVERY steps (the reset's copy of the ids is the only sync of
+    the last two); the FLOPs of one step by ``counted_flops`` and its MFU at
+    the ``step_device`` rate."""
+    from etmppo_tpu_torch.utils.flops import (counted_flops,
+                                              device_peak_flops, mfu)
+    M, N, dev = server.max_streams, SERVE_TIMED_STEPS, server.device
+    R = SERVE_RESET_EVERY
+    shape = (M,) + tuple(server.observation_shape)
+    host_obs = np.random.default_rng(0).uniform(size=shape).astype(
+        np.float32)
+    obs = torch.rand(shape, generator=gen, device=dev)
+    obs_seq = torch.rand((R,) + shape, generator=gen, device=dev)
+    seconds = {}
+    for name in ("step", "step_device", "step_many"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(N // R):
+            server.reset(range(M))
+            if name == "step":
+                for _ in range(R):
+                    server.step(host_obs)
+            elif name == "step_device":
+                for _ in range(R):
+                    server.step_device(obs)
+            else:
+                server.step_many(obs_seq)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+    server.reset(range(M))
+    flops = counted_flops(server.step_device, obs)
+    step_s = seconds["step_device"] / N
+    peak = device_peak_flops(dev)
+    return (f"policy-steps/s at M={M} over {N} steps: " + ", ".join(
+        f"{name} {M * N / s:,.0f} ({s / N * 1e3:.3f} ms/step, {s:.2f} s)"
+        for name, s in seconds.items())
+        + f"; a step {flops / 1e9:.2f} GFLOP (counted_flops), "
+        f"{flops / step_s / 1e12:.2f} TFLOP/s at the step_device rate, MFU "
+        f"{mfu(flops, step_s, peak) * 100:.3f}% of {peak / 1e12:.1f} TFLOP/s")
+
+
+def serving_trace(server, gen, steps: int = 20) -> str:
+    """``steps`` step_device calls of ``server`` under
+    ``utils/profiling.trace``: the device's busy share of their wall time,
+    CUDA kernels per step and the operators that take the most device
+    time."""
+    from etmppo_tpu_torch.utils.profiling import (TRACE_FILE, annotate,
+                                                  device_busy, trace)
+    M = server.max_streams
+    obs = torch.rand((M,) + tuple(server.observation_shape), generator=gen,
+                     device=server.device)
+    server.reset(range(M))
+    server.step_device(obs)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            with annotate("serve_steps"):
+                for _ in range(steps):
+                    server.step_device(obs)
+                torch.cuda.synchronize()
+        path = os.path.join(tmp, TRACE_FILE)
+        busy = device_busy(path, ["serve_steps"])["serve_steps"]
+        with open(path) as f:
+            kernels = sum(ev.get("ph") == "X" and ev.get("cat") == "kernel"
+                          for ev in json.load(f)["traceEvents"])
+    top = sorted((e for e in prof.key_averages() if e.key != "serve_steps"),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    return (f"traced {steps} step_device calls: device busy "
+            f"{busy['busy_share'] * 100:.1f}% of {busy['wall_s'] * 1e3:.2f} ms "
+            f"({busy['busy_s'] / steps * 1e3:.3f} ms busy a step), "
+            f"{kernels / steps:.0f} kernels a step; most device time: "
+            + ", ".join(f"{e.key[:40]} {e.self_device_time_total / steps / 1e3:.3f}"
+                        " ms" for e in top) + " a step")
+
+
+def run_serve(device, k) -> None:
+    """Phase 10: PolicyServer at both artifacts' full width."""
+    from etmppo_tpu_torch.serve import PolicyServer
+    for name, steps in SERVE_MODELS:
+        t = time.perf_counter()
+        for kernel in k.values():
+            kernel.launches = 0
+        path = artifact(name)
+        gen = torch.Generator(device).manual_seed(0)
+        server = PolicyServer(path, SERVE_STREAMS, greedy=True, device=device)
+        trx = server.config.transformer
+        detail = (f"{name} ({trx.num_blocks} x {trx.embed_dim}, memory "
+                  f"{trx.memory_length}, obs {server.observation_shape}, "
+                  f"M={SERVE_STREAMS}): " + hold_raw_memory(server, steps, gen)
+                  + "; " + hold_step_many(path, device, gen,
+                                          server.observation_shape)
+                  + "; " + serving_rates(server, gen))
+        check_launches(k.values(), 0, f"serve {name}")
+        phase("serve", t, detail + "; no kernel launched")
+        phase("serve-busy", t, f"{name}: " + serving_trace(server, gen))
+        del server
+        torch.cuda.empty_cache()
+
+
+def run_evaluate(device, k) -> None:
+    """Phase 11: the 5-seed evaluation protocol of the MiniGrid flagship."""
+    from etmppo_tpu_torch.evaluate import evaluate_protocol
+    for kernel in k.values():
+        kernel.launches = 0
+    t = time.perf_counter()
+    per_seed, aggregate = evaluate_protocol(
+        [artifact(n) for n in EVAL_MODELS], episodes=EVAL_EPISODES,
+        repeats=1, seed=0, device=device)
+    seconds = time.perf_counter() - t
+    check_launches(k.values(), 0, "evaluate")
+    success, reward = aggregate["success"], aggregate["reward"]
+    episodes = EVAL_EPISODES * len(EVAL_MODELS)
+    phase("evaluate", t,
+          f"{len(EVAL_MODELS)} seeds x {EVAL_EPISODES} episodes x 1 repeat: "
+          f"success IQM {success[0]:.4f} [{success[1]:.4f}, "
+          f"{success[2]:.4f}], reward IQM {reward[0]:.4f} [{reward[1]:.4f}, "
+          f"{reward[2]:.4f}], length IQM {aggregate['length'][0]:.2f}; "
+          f"{seconds:.2f}s with the loads, {episodes / seconds:.1f} "
+          "episodes/s; no kernel launched")
+    if success[0] != 1.0 or abs(reward[0] - EVAL_REWARD_IQM) > EVAL_REWARD_TOL:
+        raise RuntimeError(
+            f"evaluate: success IQM {success[0]}, reward IQM {reward[0]}; "
+            f"expected 1.0 and {EVAL_REWARD_IQM} +- {EVAL_REWARD_TOL}")
+
+
+def gif_images(path: str) -> int:
+    """The image descriptors of a GIF89a file, counted by walking its
+    blocks."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:6] != b"GIF89a":
+        raise RuntimeError(f"{path} does not start with GIF89a")
+
+    def table(flags):   # bytes of a colour table, if the flags say one follows
+        return 3 * (2 << (flags & 7)) if flags & 0x80 else 0
+    pos, images = 13 + table(data[10]), 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:                 # extension: label, sub-blocks
+            pos += 2
+        elif data[pos] == 0x2C:               # image: descriptor, table, LZW
+            images += 1
+            pos += 10 + table(data[pos + 9]) + 1
+        else:
+            raise RuntimeError(f"{path}: block {data[pos]:#x} at byte {pos}")
+        while data[pos]:
+            pos += data[pos] + 1
+        pos += 1
+    return images
+
+
+def run_enjoy(device, k) -> None:
+    """Phase 12: one rendered episode of the MiniGrid flagship."""
+    from etmppo_tpu_torch.enjoy import run_episodes
+    for kernel in k.values():
+        kernel.launches = 0
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            returns = run_episodes(artifact(FLAGSHIP_NN), episodes=1,
+                                   render=True, render_dir=tmp, device=device)
+        length = int(re.search(r"Episode length: (\d+)",
+                               out.getvalue()).group(1))
+        gif = os.path.join(tmp, "episode_000.gif")
+        images = gif_images(gif)
+        size = os.path.getsize(gif)
+    check_launches(k.values(), 0, "enjoy")
+    if images != length + 1:
+        raise RuntimeError(f"enjoy: {images} images in the GIF of an episode "
+                           f"of {length} steps")
+    phase("enjoy", t, f"{FLAGSHIP_NN}: an episode of {length} steps, return "
+          f"{returns[0]:.4f}; GIF89a of {images} images, {size} bytes; no "
+          "kernel launched")
+
+
+def _http(base: str, route: str, body=None, headers=None):
+    req = urllib.request.Request(base + route, data=body,
+                                 headers=headers or {})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def run_serve_http(device, k) -> None:
+    """Phase 13: the HTTP front end at the flagship's width, against a
+    local PolicyServer in the same state."""
+    from etmppo_tpu_torch.serve import PolicyServer
+    from etmppo_tpu_torch.serve_http import serve
+    for kernel in k.values():
+        kernel.launches = 0
+    t = time.perf_counter()
+    path, M = artifact(FLAGSHIP_NN), SERVE_STREAMS
+    httpd = serve(path, M, 0, greedy=True, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        local = PolicyServer(path, M, greedy=True, device=device)
+        info = _http(base, "/info")
+        shape = (M,) + tuple(info["observation_shape"])
+        if info["max_streams"] != M or shape[1:] != local.observation_shape:
+            raise RuntimeError(f"serve-http: /info says {info}")
+        json_hdr = {"Content-Type": "application/json"}
+        reset = json.dumps({"streams": list(range(M))}).encode()
+        _http(base, "/reset", reset, json_hdr)
+        local.reset(range(M))
+        rng = np.random.default_rng(0)
+        obs = rng.uniform(size=shape).astype("<f4")
+        obs_seq = rng.uniform(size=(HTTP_MANY[1],) + shape).astype("<f4")
+        binary = {"Content-Type": "application/octet-stream",
+                  "X-Streams": str(M)}
+        for route, body, extra, run_local in (
+                ("/step", obs, {}, lambda: local.step(obs)),
+                ("/step_many", obs_seq, {"X-T": str(HTTP_MANY[1])},
+                 lambda: local.step_many(obs_seq))):
+            got = _http(base, route, body.tobytes(), {**binary, **extra})
+            actions, values = run_local()
+            err = np.abs(np.asarray(got["values"])
+                         - np.asarray(values.tolist())).max()
+            if not (np.array_equal(got["actions"], actions.tolist())
+                    and err <= 1e-5 and got["steps"] == local.steps.tolist()):
+                raise RuntimeError(f"serve-http: {route} answers otherwise "
+                                   f"than a local PolicyServer ({err})")
+        def timed(n, steps, route, body, headers):
+            # n requests of ``steps`` steps each; every stream reset (not
+            # timed) before each SERVE_RESET_EVERY steps, as /step refuses
+            # an exhausted stream.
+            seconds, chunk = 0.0, SERVE_RESET_EVERY // steps
+            for i in range(0, n, chunk):
+                _http(base, "/reset", reset, json_hdr)
+                tr = time.perf_counter()
+                for _ in range(min(chunk, n - i)):
+                    _http(base, route, body, headers)
+                seconds += time.perf_counter() - tr
+            return seconds
+        step_s = timed(HTTP_STEPS, 1, "/step", obs.tobytes(), binary)
+        many_s = timed(HTTP_MANY[0], HTTP_MANY[1], "/step_many",
+                       obs_seq.tobytes(), {**binary, "X-T": str(HTTP_MANY[1])})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    check_launches(k.values(), 0, "serve-http")
+    n_many = HTTP_MANY[0] * HTTP_MANY[1]
+    phase("serve-http", t,
+          f"{FLAGSHIP_NN}, M={M}: /info, /reset, binary /step and /step_many "
+          f"(X-T={HTTP_MANY[1]}) answer as a local PolicyServer; binary "
+          f"/step ({obs.nbytes} bytes) {HTTP_STEPS / step_s:.1f} requests/s, "
+          f"{M * HTTP_STEPS / step_s:,.0f} policy-steps/s ({HTTP_STEPS} in "
+          f"{step_s:.2f} s); binary /step_many {HTTP_MANY[0] / many_s:.2f} "
+          f"requests/s, {M * n_many / many_s:,.0f} policy-steps/s "
+          f"({HTTP_MANY[0]} in {many_s:.2f} s); no kernel launched")
+
+
+def update_mfu(trainer, batch, update_s: float) -> str:
+    """The FLOPs of one PPO update of ``trainer`` (``counted_flops`` of one
+    minibatch's forward and backward through the kernel pair, plus
+    ``window_attention_flops`` of the pair at every block, which the counter
+    cannot see, times the minibatches of an update) over ``update_s``."""
+    from etmppo_tpu_torch.utils.flops import (counted_flops,
+                                              device_peak_flops, mfu,
+                                              window_attention_flops)
+    upd, cfg = trainer.update_fn, trainer.config
+    trx = cfg.transformer
+    timeline, slots, fields = upd.prepare_timeline(batch)
+    idx = torch.arange(cfg.mini_batch_size, device=trainer.device)
+
+    def forward_backward():
+        loss, _ = upd.loss_timeline(upd.minibatch(fields, idx), timeline,
+                                    slots, 0.1, 0.001)
+        loss.backward()
+    counted = counted_flops(forward_backward)
+    trainer.model.zero_grad(set_to_none=True)
+    B, L, D = cfg.mini_batch_size, trx.memory_length, trx.embed_dim
+    pair = trx.num_blocks * (window_attention_flops(B, L, D)
+                             + window_attention_flops(B, L, D, backward=True))
+    n = cfg.epochs * cfg.n_mini_batch
+    total = n * (counted + pair)
+    peak = device_peak_flops(trainer.device)
+    return (f"a minibatch {counted / 1e9:.2f} GFLOP counted + {pair / 1e9:.3f}"
+            f" GFLOP of the kernel pair, x {n} = {total / 1e12:.3f} TFLOP per"
+            f" PPO update; over its {update_s:.3f} s: "
+            f"{total / update_s / 1e12:.2f} TFLOP/s, MFU "
+            f"{mfu(total, update_s, peak) * 100:.2f}% of "
+            f"{peak / 1e12:.1f} TFLOP/s")
+
+
 def main() -> int:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1062,6 +1516,11 @@ def main() -> int:
     from etmppo_tpu_torch.config import CARTPOLE_MASKED, POC_MEMORY
     run_gathered(device, k, "pocmemory", POC_MEMORY, POC_UPDATES, True)
     run_gathered(device, k, "cartpole", CARTPOLE_MASKED, UPDATES + 1, False)
+    torch.cuda.empty_cache()
+    run_serve(device, k)
+    run_evaluate(device, k)
+    run_enjoy(device, k)
+    run_serve_http(device, k)
 
     entries = []
     for i, name in enumerate(NAMES):

@@ -1,9 +1,11 @@
-"""Command-line entry point (counterpart of ``etmppo_tpu/cli.py:train_main``).
+"""Command-line entry points (counterpart of ``etmppo_tpu/cli.py``).
 
-    python -m etmppo_tpu_torch.cli --config=<yaml or json> --run-id=<id> \
-        [--cpu] [--resume] [--updates=N] [--profile=DIR] [--seeds=N]
+Train:  python -m etmppo_tpu_torch.cli --config=<yaml or json> --run-id=<id> \
+            [--cpu] [--resume] [--updates=N] [--profile=DIR] [--seeds=N]
+Enjoy:  python -m etmppo_tpu_torch.enjoy --model=<path> [--episodes=N] \
+            [--cpu] [--no-render] [--render-dir=DIR]
 
-Training runs on the CUDA device unless ``--cpu`` is given; without a GPU and
+Both run on the CUDA device unless ``--cpu`` is given; without a GPU and
 without ``--cpu`` it raises. A ``.json`` config needs no PyYAML. ``--resume``
 continues from the run's latest checkpoint (``checkpoint_interval > 0``);
 the final model is saved as ``<checkpoint_dir>/<run-id>.nn``. ``--profile``
@@ -86,6 +88,28 @@ def train_main(argv=None):
         print(f"[{len(results)} seeds] final reward_mean: "
               f"{np.nanmean(rewards):.3f} +/- {np.nanstd(rewards):.3f}")
     return results[-1]
+
+
+def enjoy_main(argv=None):
+    """Runs a trained model's episodes (``enjoy.run_episodes``); returns
+    their returns."""
+    parser = argparse.ArgumentParser(description="Run a trained model")
+    parser.add_argument("--model", default="./models/run.nn",
+                        help="Path to the trained model")
+    parser.add_argument("--episodes", type=int, default=1)
+    parser.add_argument("--cpu", action="store_true",
+                        help="Run on the CPU instead of the GPU")
+    parser.add_argument("--no-render", action="store_true")
+    parser.add_argument("--render-dir", default=None,
+                        help="Where image-env episode GIFs are written "
+                             "(default: renders/<model-stem>/)")
+    args = parser.parse_args(argv)
+
+    from .enjoy import run_episodes
+    return run_episodes(args.model, episodes=args.episodes,
+                        render=not args.no_render,
+                        render_dir=args.render_dir,
+                        device="cpu" if args.cpu else "cuda")
 
 
 if __name__ == "__main__":

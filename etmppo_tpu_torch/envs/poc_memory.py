@@ -92,6 +92,25 @@ class PocMemoryEnv(TorchEnv):
             length=zeros)
         return state, self._obs(state, show_goals=True)
 
+    def render_ascii(self, state: PocMemoryState, worker: int = 0) -> str:
+        """One worker's track as text: the agent ``a``, each goal ``+`` or
+        ``-``, and whether the goals are still shown."""
+        n = self.goal_ticks
+        tick = int(state.ticks[worker])
+        goals = state.goals[worker].tolist()
+        cells = []
+        for i in range(-n, n + 1):
+            if tick == i:
+                cells.append("a")
+            elif i == -n:
+                cells.append("+" if goals[0] > 0 else "-")
+            elif i == n:
+                cells.append("+" if goals[1] > 0 else "-")
+            else:
+                cells.append(" ")
+        shown = int(state.step_count[worker]) < self.num_show_steps
+        return "|" + "|".join(cells) + "|  goals shown: " + str(shown)
+
     def step(self, state: PocMemoryState, actions: torch.Tensor, draws=None):
         del draws  # the step draws nothing
         time_done = (self.max_episode_steps > 0) & (

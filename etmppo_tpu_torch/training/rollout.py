@@ -21,9 +21,10 @@ import torch
 from ..config import TrainConfig
 from ..envs.core import TorchEnv, select_state
 from ..models.actor_critic import ActorCriticModel
+from ..models.kv_cache import KVCacheStep
 from ..ops import distributions
 from ..ops.gae import calc_advantages
-from ..ops.memory_index import build_memory_indices, build_memory_mask
+from ..ops.memory_index import build_memory_indices
 
 
 class RolloutState(NamedTuple):
@@ -63,8 +64,8 @@ class RolloutFn:
         self.device = env.device
         trx = config.transformer
         self.max_ep = env.max_episode_steps
-        self.mask_table = torch.as_tensor(
-            build_memory_mask(trx.memory_length), device=self.device)
+        self.kv_step = KVCacheStep(model, config.n_workers, self.max_ep,
+                                   trx.memory_length, self.device)
         self.index_table = torch.as_tensor(
             build_memory_indices(self.max_ep, trx.memory_length),
             device=self.device)
@@ -96,11 +97,9 @@ class RolloutFn:
                  ) -> Tuple[RolloutState, RolloutBatch]:
         cfg = self.config
         W, T = cfg.n_workers, cfg.worker_steps
-        L = cfg.transformer.memory_length
         dev = self.device
         model = self.model
         workers = torch.arange(W, device=dev)
-        window = torch.arange(L, device=dev)
         slots = torch.arange(self.max_ep, device=dev).expand(W, -1)
 
         snapshot = state.memory
@@ -125,15 +124,11 @@ class RolloutFn:
 
         env_state, obs, e = state.env_state, state.obs, state.episode_step
         for t in range(T):
-            mask = self.mask_table[e.clamp(0, L - 1)]                 # (W, L)
-            rows = (e - (L - 1)).clamp(min=0)[:, None] + window       # (W, L)
-            logits, value, mem_item = model.forward_with_kv(
-                obs, k_cache[workers[:, None], rows],
-                v_cache[workers[:, None], rows], mask)
-            memory[workers, e] = mem_item
-            k_item, v_item = model.project_memory(mem_item, e)
-            k_cache[workers, e] = k_item
-            v_cache[workers, e] = v_item
+            logits, value, mem_item, slot, k_item, v_item = self.kv_step(
+                obs, k_cache, v_cache, e)
+            memory[workers, slot] = mem_item
+            k_cache[workers, slot] = k_item
+            v_cache[workers, slot] = v_item
             actions, log_probs = self.sample_actions(logits, t)
 
             env_state, obs_next, reward, done, info = self.env.step(
@@ -186,6 +181,6 @@ class RolloutFn:
             L, device=self.device)
         window = state.memory[torch.arange(W, device=self.device)[:, None],
                               rows]
-        mask = self.mask_table[e.clamp(0, L - 1)]
+        mask = self.kv_step.mask_table[e.clamp(0, L - 1)]
         _, last_value, _ = self.model(state.obs, window, mask, last_indices)
         return last_value

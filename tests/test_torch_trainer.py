@@ -238,7 +238,7 @@ def test_timer_means_per_span():
 
 def test_package_never_imports_jax_or_the_jax_package():
     forbidden = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|msgpack|optax|yaml|etmppo_tpu)"
+        r"^\s*(import|from)\s+(jax|flax|msgpack|optax|yaml|etmppo_tpu|PIL)"
         r"(\.|\s|$)")
     sources = glob.glob(os.path.join(PACKAGE, "**", "*.py"), recursive=True)
     sources.append(os.path.join(PACKAGE, "..", "chip_smoke.py"))
@@ -263,9 +263,13 @@ def test_importing_the_port_loads_no_jax():
             "etmppo_tpu_torch.envs.poc_memory, "
             "etmppo_tpu_torch.envs.cartpole, "
             "etmppo_tpu_torch.envs.searing_spotlights, "
-            "etmppo_tpu_torch.utils.profiling; "
+            "etmppo_tpu_torch.utils.profiling, "
+            "etmppo_tpu_torch.serve, etmppo_tpu_torch.serve_http, "
+            "etmppo_tpu_torch.evaluate, etmppo_tpu_torch.enjoy, "
+            "etmppo_tpu_torch.utils.render, etmppo_tpu_torch.utils.flops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'msgpack', 'optax', 'yaml', 'etmppo_tpu')]; "
+            "('jax', 'flax', 'msgpack', 'optax', 'yaml', 'etmppo_tpu', "
+            "'PIL')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
