@@ -6,7 +6,11 @@
 Phases, each printing one line with its seconds:
 
 1. device:      requires a CUDA device; prints the card's name and power limit
-                (nvidia-smi) and turns TF32 off for matmuls and convolutions.
+                (nvidia-smi). The script sets no precision flag itself: the
+                package's entry points turn TF32 off for matmuls and
+                convolutions (utils/runtime.py), and the script checks both
+                flags off after it builds the first trainer and again before
+                its result line.
 2. build:       compiles the four window-attention kernels from
                 etmppo_tpu_torch/csrc/ (the per-sample forward and backward,
                 the grouped forward and backward), one nvcc process each,
@@ -129,7 +133,31 @@ Phases, each printing one line with its seconds:
                 /step_many (X-T) must answer as a local PolicyServer in the
                 same state; prints requests/s and policy-steps/s over the
                 wire.
-No window-attention kernel may launch in phases 10-13. The flagship phase
+14. native:     PocMemory and masked CartPole exactly as their YAMLs say but
+                with the native C++ env engine (PocMemoryEnv-native,
+                CartPoleMasked-native; csrc/env_batch.cpp, built by g++
+                into etmppo_tpu_torch/_build/, its seconds printed),
+                three PPO updates each through PPOTrainer and the host
+                rollout, the second traced, as phases 8 and 9 (no kernel
+                may launch, stats finite): steady env-steps/s beside the
+                device env's of phases 8 and 9, rollout and update seconds,
+                busy share, success; and a probe: the engine's step alone
+                with its threads and with one, and the device activities
+                with the most time in the traced rollout.
+15. host-pool:  the process pool (envs/host.py) over StubGridEnv, a
+                deterministic, action-independent numpy env at the MiniGrid
+                flagship's shape (84x84x3, 3 actions, episodes of 65-96
+                steps), forked after the card's first use, driven by the
+                host rollout at the flagship's full width (16 x 512, TrXL 3
+                x 384, memory 64): serial (1 group) and pipelined (2 groups)
+                in turns, held against each other and the serial one against
+                the device rollout over StubGridTwin (the same dynamics on
+                the card): obs, dones and episode steps equal, values and
+                tape within 1e-4 relative / 1e-5 absolute, advantages within
+                1e-4; prints each rollout's seconds and the busy share of a
+                traced pipelined rollout; then one PPO update on the host
+                batch with the kernel pair (120 launches of each).
+No window-attention kernel may launch in phases 10-14. The flagship phase
 (4) also prints flagship-mfu: the FLOPs of a PPO update (counted_flops of
 one minibatch's forward and backward, plus window_attention_flops for the
 kernel pair, times the minibatches) over its measured seconds.
@@ -155,6 +183,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -689,6 +718,14 @@ def kernel_shape(trainer, name: str) -> str:
             f"H={trx.num_heads}")
 
 
+def check_float32(where: str) -> None:
+    """The package's entry points turn TF32 off (utils/runtime.py); this
+    script sets neither flag itself."""
+    if not (torch.backends.cuda.matmul.allow_tf32 is False
+            and torch.backends.cudnn.allow_tf32 is False):
+        raise RuntimeError(f"TF32 is on {where}")
+
+
 def check_launches(kernels, expected: int, label: str) -> None:
     for k in kernels:
         if k.launches != expected:
@@ -710,6 +747,7 @@ def run_flagship(device, k) -> list:
             raise RuntimeError("the flagship config must use the backward "
                                "kernel")
         trainer = PPOTrainer(config, run_id="chip_smoke", device=device)
+        check_float32("after the first trainer")
         fwd, bwd = k[NAMES[0]], k[NAMES[1]]
         try:
             torch.cuda.synchronize()
@@ -992,14 +1030,17 @@ def run_searingspotlights(device, k) -> list:
 
 
 def run_gathered(device, k, name: str, raw: dict, updates: int,
-                 traced: bool) -> None:
-    """Phases 8 and 9: a configuration on the gathered-window loss (no
+                 traced: bool, probe=None) -> float:
+    """Phases 8, 9 and 14: a configuration on the gathered-window loss (no
     kernel may launch), ``updates`` (more than UPDATES) updates, with
     ``traced`` the second traced; prints the steady env-steps/s (over the
     updates after the second), the last update's success where the env
-    reports one, and the rollout and PPO update seconds apart."""
+    reports one, and the rollout and PPO update seconds apart; then
+    ``probe(trainer, trace file)``'s line, where given (with ``traced``).
+    Returns the steady env-steps/s."""
     from etmppo_tpu_torch.config import config_from_dict
     from etmppo_tpu_torch.training.trainer import PPOTrainer
+    from etmppo_tpu_torch.utils.profiling import TRACE_FILE
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         config = dataclasses.replace(
@@ -1027,11 +1068,11 @@ def run_gathered(device, k, name: str, raw: dict, updates: int,
                 raise RuntimeError(f"{name}: non-finite stats {bad}")
             steps = config.n_workers * config.worker_steps
             steady = per_update[UPDATES:]
+            rate = steps * len(steady) / sum(steady)
             detail = (f"{updates} updates, no kernel launched; s/update "
                       + " ".join(f"{s:.2f}" for s in per_update[:UPDATES])
                       + (" (update 2 traced)" if traced else "")
-                      + "; steady env-steps/s "
-                      f"{steps * len(steady) / sum(steady):.0f} (mean over "
+                      + f"; steady env-steps/s {rate:.0f} (mean over "
                       f"updates {UPDATES + 1}-{updates})")
             if "success" in result:
                 detail += (f"; update {updates}: success "
@@ -1044,8 +1085,13 @@ def run_gathered(device, k, name: str, raw: dict, updates: int,
             if traced:
                 phase(f"{name}-busy", t, busy_line(
                     per_update[1], shares, rollout_s, mean["gathered loss"]))
+            if probe is not None:
+                t = time.perf_counter()
+                phase(f"{name}-probe", t, probe(trainer, os.path.join(
+                    tmp, "trace", TRACE_FILE)))
         finally:
             trainer.close()
+    return rate
 
 
 def artifact(name: str) -> str:
@@ -1407,6 +1453,352 @@ def run_serve_http(device, k) -> None:
           f"({HTTP_MANY[0]} in {many_s:.2f} s); no kernel launched")
 
 
+# Phases 14-15: the host environment paths.
+NATIVE_UPDATES = 3
+HOSTPOOL_PROCS = 2       # each steps 8 consecutive workers, serial or grouped
+STUB_PER_PROC = 8
+STUB_MAX_STEPS = 96
+# Host rollout against another rollout of the same deterministic dynamics
+# (the tolerances of tests/test_host_env.py): obs, dones and episode steps
+# equal; values and the memory tape, transformer outputs at other batch
+# sizes, within HOST_RTOL / HOST_ATOL; advantages, sums of them, within
+# HOST_ADV_TOL relative and absolute.
+HOST_RTOL, HOST_ATOL, HOST_ADV_TOL = 1e-4, 1e-5, 1e-4
+_STUB_MADE = {}          # envs made so far, by process id
+
+
+def _stub_obs(t, j, k, xp):
+    """The stub's (84, 84, 3) observation at episode step t of worker
+    identity j's k-th episode, in [0, 1), exact in float32; ``xp``: numpy
+    or torch arrays of the grid and the integers."""
+    h, w, c = xp
+    return ((h * 7 + w * 3 + c * 11 + t * 5 + j * 13 + k * 17) % 256) / 256
+
+
+def _stub_length(j, k):
+    """Episode k of worker identity j lasts 65-96 steps: longer than the
+    flagship's memory of 64, and 96 (the limit) for j = k = 0."""
+    return STUB_MAX_STEPS - (j + 3 * k) % 32
+
+
+class _StubSpace:
+    def __init__(self, shape=None, n=None):
+        self.shape, self.n = shape, n
+
+
+class StubGridEnv:
+    """A deterministic, action-independent Python env at the MiniGrid
+    flagship's shape (84x84x3 float obs, given CHW as the wrappers give
+    them; 3 actions; 96 steps at most), numpy only, as the pool's forked
+    workers require. Its identity j is its index among the envs its process
+    made, which is the worker's index modulo STUB_PER_PROC when the pool
+    gives every process STUB_PER_PROC consecutive workers."""
+
+    observation_space = _StubSpace(shape=(3, 84, 84))
+    action_space = _StubSpace(n=3)
+    max_episode_steps = STUB_MAX_STEPS
+    _grid = tuple(np.ix_(np.arange(84), np.arange(84), np.arange(3)))
+
+    def __init__(self):
+        pid = os.getpid()
+        self.j = _STUB_MADE.get(pid, 0)
+        _STUB_MADE[pid] = self.j + 1
+        self.k = -1
+
+    def _obs(self):
+        obs = _stub_obs(self.t, self.j, self.k, self._grid)
+        return obs.astype(np.float32).transpose(2, 0, 1)
+
+    def reset(self):
+        self.k += 1
+        self.t = 0
+        return self._obs()
+
+    def step(self, action):
+        self.t += 1
+        done = self.t >= _stub_length(self.j, self.k)
+        info = ({"reward": self.t / 64, "length": float(self.t)} if done
+                else None)
+        return self._obs(), np.float32(1 / 64), done, info
+
+    def close(self):
+        pass
+
+
+class StubGridState(NamedTuple):
+    t: torch.Tensor      # (W,) int64 episode step
+    k: torch.Tensor      # (W,) int64 episode count
+
+
+class StubGridTwin:
+    """StubGridEnv's dynamics as a batched env on the device (the port's
+    TorchEnv protocol), for the device rollout: worker w has identity
+    w % STUB_PER_PROC. Episode counts live on the env, since the rollout's
+    resets replace the state of the workers that are done."""
+
+    observation_shape = (84, 84, 3)
+    action_branches = (3,)
+    max_episode_steps = STUB_MAX_STEPS
+    info_keys = ("reward", "length")
+
+    def __init__(self, n_workers: int, device):
+        self.n_workers, self.device = n_workers, device
+        self.j = torch.arange(n_workers, device=device) % STUB_PER_PROC
+        self.episodes = torch.zeros(n_workers, dtype=torch.int64,
+                                    device=device)
+        ar = lambda n: torch.arange(n, device=device)
+        self._grid = (ar(84)[:, None, None], ar(84)[None, :, None],
+                      ar(3)[None, None, :])
+
+    def _obs(self, t, k):
+        v = lambda x: x[:, None, None, None]
+        return _stub_obs(v(t), v(self.j), v(k),
+                         tuple(g[None] for g in self._grid)).float()
+
+    def sample_reset_draws(self, generator):
+        return None
+
+    def sample_step_draws(self, generator):
+        return None
+
+    def reset(self, draws):
+        t = torch.zeros_like(self.episodes)
+        k = self.episodes.clone()
+        return StubGridState(t, k), self._obs(t, k)
+
+    def step(self, state, actions, draws=None):
+        t = state.t + 1
+        done = t >= _stub_length(self.j, state.k)
+        self.episodes += done
+        reward = torch.full((self.n_workers,), 1 / 64, device=self.device)
+        return StubGridState(t, state.k), self._obs(t, state.k), reward, \
+            done, {"reward": t.float() / 64, "length": t.float()}
+
+
+def hold_host_batch(ours, ref, label: str) -> str:
+    """A host rollout's batch against another rollout's of the same
+    dynamics, to the HOST_* tolerances; returns the largest differences."""
+    for name in ("obs", "dones", "episode_steps"):
+        if not torch.equal(getattr(ours, name), getattr(ref, name)):
+            raise RuntimeError(f"{label}: {name} differ")
+    errs = {}
+    for name, rtol, atol in (("values", HOST_RTOL, HOST_ATOL),
+                             ("tape", HOST_RTOL, HOST_ATOL),
+                             ("advantages", HOST_ADV_TOL, HOST_ADV_TOL)):
+        a, b = getattr(ours, name), getattr(ref, name)
+        diff = (a - b).abs()
+        if bool((diff > atol + rtol * b.abs()).any()):
+            raise RuntimeError(f"{label}: {name} differ by up to "
+                               f"{diff.max().item():.3e}")
+        errs[name] = diff.max().item()
+    if not bool(ours.dones.any()):
+        raise RuntimeError(f"{label}: no episode ended")
+    return (f"{label}: obs, dones, episode steps equal; max diff "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+
+
+def device_top(path: str, span: str, until: str, steps: int,
+               n: int = 6) -> str:
+    """From a trace written by ``utils/profiling.trace``: the device
+    activities (kernels, copies, memsets) with the most time between the
+    first ``span`` annotation's start and the first ``until``'s, by name,
+    per step of ``steps``."""
+    from etmppo_tpu_torch.utils.profiling import DEVICE_CATEGORIES
+    with open(path) as f:
+        events = [ev for ev in json.load(f)["traceEvents"]
+                  if ev.get("ph") == "X"]
+    starts = {}
+    for ev in events:
+        if (ev.get("cat") == "user_annotation"
+                and ev.get("name") in (span, until)):
+            starts.setdefault(ev["name"], float(ev["ts"]))
+    lo, hi = starts[span], starts[until]
+    totals, counts = {}, {}
+    for ev in events:
+        if ev.get("cat") in DEVICE_CATEGORIES and lo <= float(ev["ts"]) < hi:
+            totals[ev["name"]] = totals.get(ev["name"], 0.0) + ev["dur"]
+            counts[ev["name"]] = counts.get(ev["name"], 0) + 1
+    top = sorted(totals, key=totals.get, reverse=True)[:n]
+    return ", ".join(f"{name[:40]} {totals[name] / steps / 1e3:.3f} ms "
+                     f"({counts[name] / steps:.1f} calls)" for name in top)
+
+
+def native_probe(trainer, trace_file: str) -> str:
+    """Where a native rollout's time goes: the engine's ``step`` alone over
+    a rollout's steps, with its thread pool as the factory builds it and
+    with one thread, and the device activities with the most time in the
+    traced update's rollout (``trace_file``)."""
+    from etmppo_tpu_torch.envs.native import NativeEnvBatch
+    cfg = trainer.config
+    W, T = cfg.n_workers, cfg.worker_steps
+    secs = {}
+    for threads in (os.cpu_count() or 1, 1):
+        env = NativeEnvBatch(cfg.environment.type, n_threads=threads)
+        env.start(W)
+        try:
+            env.reset_all()
+            actions = np.zeros((W, 1), np.int32)
+            begin = time.perf_counter()
+            for _ in range(T):
+                env.step(actions)
+            secs[threads] = time.perf_counter() - begin
+        finally:
+            env.close()
+    return (f"engine step alone, {T} steps of {W} envs: " + ", ".join(
+        f"{n} threads {sec:.3f}s ({sec / T * 1e3:.3f} ms a step)"
+        for n, sec in secs.items())
+        + "; traced rollout, most device time: "
+        + device_top(trace_file, "rollout", "ppo_update", T) + " a step")
+
+
+def run_native(device, k, device_rates: dict) -> None:
+    """Phase 14: PocMemory and masked CartPole as their YAMLs say, on the
+    native C++ engine (``-native``), through PPOTrainer on the card."""
+    from etmppo_tpu_torch.config import CARTPOLE_MASKED, POC_MEMORY
+    from etmppo_tpu_torch.envs import native
+    t = time.perf_counter()
+    existed = native.library_path().exists()
+    path = native.build_native_library()
+    phase("native-build", t, f"{path.name} {time.perf_counter() - t:.2f}s "
+          f"({'reused' if existed else 'g++'})")
+    lines = []
+    for name, raw in (("pocmemory", POC_MEMORY),
+                      ("cartpole", CARTPOLE_MASKED)):
+        env_type = raw["environment"]["type"] + "-native"
+        rate = run_gathered(device, k, f"{name}-native",
+                            dict(raw, environment={"type": env_type}),
+                            NATIVE_UPDATES, True, native_probe)
+        lines.append(f"{env_type} {rate:.0f} steady env-steps/s against "
+                     f"{device_rates[name]:.0f} on the device env "
+                     f"({name} phase)")
+    phase("native", t, "; ".join(lines))
+
+
+def run_hostpool(device, k) -> list:
+    """Phase 15: the process pool and the host rollout at the MiniGrid
+    flagship's full width over StubGridEnv; returns the launches of the
+    phase, in the order of NAMES."""
+    from etmppo_tpu_torch.config import MINIGRID_FLAGSHIP, config_from_dict
+    from etmppo_tpu_torch.envs.host import HostEnvBatch
+    from etmppo_tpu_torch.models.actor_critic import ActorCriticModel
+    from etmppo_tpu_torch.training.host_rollout import HostRolloutFn
+    from etmppo_tpu_torch.training.ppo import PPOUpdate
+    from etmppo_tpu_torch.training.rollout import RolloutFn
+    from etmppo_tpu_torch.utils.profiling import (TRACE_FILE, annotate,
+                                                  device_busy, trace)
+    for kernel in k.values():
+        kernel.launches = 0
+    t = time.perf_counter()
+    config = config_from_dict(MINIGRID_FLAGSHIP)
+    W = config.n_workers
+    if config.host_pipeline_groups != 2 or W != 2 * STUB_PER_PROC:
+        raise RuntimeError("the host-pool phase expects 16 workers in 2 "
+                           "groups")
+    model = ActorCriticModel(
+        config, StubGridTwin.observation_shape, StubGridTwin.action_branches,
+        STUB_MAX_STEPS, device=device,
+        generator=torch.Generator().manual_seed(config.seed))
+    pools, fns, states = {}, {}, {}
+    try:
+        for kind in ("serial", "pipelined"):
+            pools[kind] = HostEnvBatch(make_env=StubGridEnv,
+                                       n_procs=HOSTPOOL_PROCS)
+            fns[kind] = HostRolloutFn(
+                config, pools[kind], model,
+                torch.Generator(device).manual_seed(1),
+                pipeline=kind == "pipelined")
+            states[kind] = fns[kind].init_state()
+        if (fns["serial"].n_groups, fns["pipelined"].n_groups) != (1, 2):
+            raise RuntimeError("expected 1 and 2 groups")
+        torch.cuda.synchronize()
+        phase("host-pool-setup", t, f"{len(pools['serial']._procs)} + "
+              f"{len(pools['pipelined']._procs)} worker processes started "
+              "after the card's first use")
+
+        def timed(run, state):
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            out = run(state)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - begin
+
+        t = time.perf_counter()
+        twin = StubGridTwin(W, device)
+        device_fn = RolloutFn(config, twin, model,
+                              torch.Generator(device).manual_seed(1))
+        (_, device_batch), device_s = timed(device_fn, device_fn.init_state())
+        # Serial and pipelined in turns (s, p, p, s); each pair of equal
+        # turns starts from equal states.
+        secs = {"serial": [], "pipelined": []}
+        held = []
+        for turn in (("serial", "pipelined"), ("pipelined", "serial")):
+            batches = {}
+            for kind in turn:
+                (states[kind], batches[kind]), sec = timed(fns[kind],
+                                                           states[kind])
+                secs[kind].append(sec)
+            if not held:
+                held.append(hold_host_batch(batches["serial"], device_batch,
+                                            "host against device"))
+                del device_batch
+            held.append(hold_host_batch(batches["pipelined"],
+                                        batches["serial"],
+                                        f"pipelined against serial "
+                                        f"{len(held)}"))
+            host_batch = batches["serial"]
+            del batches
+        steps = W * config.worker_steps
+        mean = {kind: sum(v) / len(v) for kind, v in secs.items()}
+        phase("host-pool", t,
+              "; ".join(held) + f"; rollout s: device env {device_s:.2f}, "
+              + ", ".join(f"{kind} {' '.join(f'{x:.2f}' for x in v)}"
+                          for kind, v in secs.items())
+              + "; env-steps/s of a rollout: " + ", ".join(
+                  f"{kind} {steps / m:.0f}" for kind, m in mean.items())
+              + f", device env {steps / device_s:.0f}; pipelined/serial "
+              f"{mean['pipelined'] / mean['serial']:.3f}")
+
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp):
+                with annotate("rollout"):
+                    states["pipelined"], _ = fns["pipelined"](
+                        states["pipelined"])
+                torch.cuda.synchronize()
+            shares = device_busy(os.path.join(tmp, TRACE_FILE), ["rollout"])
+        busy = shares["rollout"]
+        if busy["busy_s"] <= 0:
+            raise RuntimeError("host-pool: the trace holds no device "
+                           "activity")
+        phase("host-pool-busy", t,
+              f"traced pipelined rollout: device busy "
+              f"{busy['busy_share'] * 100:.1f}% of {busy['wall_s']:.3f}s "
+              f"({busy['busy_s']:.3f}s busy); over the untraced pipelined "
+              f"mean {busy['busy_s'] / mean['pipelined'] * 100:.1f}% of "
+              f"{mean['pipelined']:.3f}s")
+    finally:
+        for pool in pools.values():
+            pool.close()
+
+    t = time.perf_counter()
+    update = PPOUpdate(config, model, STUB_MAX_STEPS,
+                       torch.Generator(device).manual_seed(2))
+    stats, _ = update(host_batch, 1e-4, 0.1, 0.001)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t
+    if not bool(torch.isfinite(stats).all()):
+        raise RuntimeError(f"host-pool: non-finite stats {stats.tolist()}")
+    check_launches((k[NAMES[0]], k[NAMES[1]]), FLAGSHIP_LAUNCHES,
+                   "host-pool")
+    check_launches((k[NAMES[2]], k[NAMES[3]]), 0, "host-pool")
+    phase("host-pool-update", t,
+          f"one PPO update on the serial host batch with the kernel pair in "
+          f"{update_s:.2f}s, launches fwd {k[NAMES[0]].launches} bwd "
+          f"{k[NAMES[1]].launches}; stats finite")
+    return [k[n].launches for n in NAMES]
+
+
+
 def update_mfu(trainer, batch, update_s: float) -> str:
     """The FLOPs of one PPO update of ``trainer`` (``counted_flops`` of one
     minibatch's forward and backward through the kernel pair, plus
@@ -1450,8 +1842,6 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     phase("device", start, f"{kind}; torch {torch.__version__}, "
@@ -1514,13 +1904,21 @@ def main() -> int:
     launches["searingspotlights"] = run_searingspotlights(device, k)
     torch.cuda.empty_cache()
     from etmppo_tpu_torch.config import CARTPOLE_MASKED, POC_MEMORY
-    run_gathered(device, k, "pocmemory", POC_MEMORY, POC_UPDATES, True)
-    run_gathered(device, k, "cartpole", CARTPOLE_MASKED, UPDATES + 1, False)
+    device_rates = {
+        "pocmemory": run_gathered(device, k, "pocmemory", POC_MEMORY,
+                                  POC_UPDATES, True),
+        "cartpole": run_gathered(device, k, "cartpole", CARTPOLE_MASKED,
+                                 UPDATES + 1, False)}
     torch.cuda.empty_cache()
     run_serve(device, k)
     run_evaluate(device, k)
     run_enjoy(device, k)
     run_serve_http(device, k)
+    torch.cuda.empty_cache()
+    run_native(device, k, device_rates)
+    torch.cuda.empty_cache()
+    launches["hostpool"] = run_hostpool(device, k)
+    check_float32("before the result line")
 
     entries = []
     for i, name in enumerate(NAMES):

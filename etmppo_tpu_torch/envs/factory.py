@@ -1,14 +1,29 @@
 """Environment factory (counterpart of ``etmppo_tpu/envs/factory.py``).
 
-The on-device envs are ported: PocMemory, CartPole (plain and masked),
-MiniGrid-Memory, Mystery Path Grid, Mortar Mayhem Grid and Searing
-Spotlights. Every other type (the host bridge's ``-host`` types and the
-non-Grid MemoryGym names, the ``-native`` types) raises.
+The on-device envs (PocMemory, CartPole plain and masked, MiniGrid-Memory,
+Mystery Path Grid, Mortar Mayhem Grid, Searing Spotlights) step all
+``n_workers`` workers on ``device``. The host envs step on the CPU behind a
+vectorized ``reset_all`` / ``step`` API and take their worker count at
+``start``: the ``-native`` types in the C++ engine (``envs/native.py``),
+and ``HOST_ENV_TYPES`` (the original Python packages, memory-gym and
+gym-minigrid, where installed) in the process pool (``envs/host.py``).
 """
 from __future__ import annotations
 
+import dataclasses
+
 from ..config import EnvConfig
 from .core import TorchEnv
+
+# memory-gym env families: the "-Grid" types are the on-device
+# reimplementations (envs/mortar_mayhem.py, envs/mystery_path.py); append
+# "-host" (or use a non-Grid type) to run the original Python packages
+# through the host bridge.
+HOST_ENV_TYPES = (
+    "MortarMayhem", "MysteryPath",
+    "MortarMayhem-Grid-host", "MysteryPath-Grid-host",
+    "SearingSpotlights-host", "Minigrid-host",
+)
 
 
 def create_env(config: EnvConfig, n_workers: int, device) -> TorchEnv:
@@ -31,5 +46,15 @@ def create_env(config: EnvConfig, n_workers: int, device) -> TorchEnv:
     if config.type == "SearingSpotlights":
         from .searing_spotlights import SearingSpotlightsEnv
         return SearingSpotlightsEnv(config.reset_params, n_workers, device)
-    raise NotImplementedError(
-        f"environment type {config.type!r} is not ported to PyTorch yet")
+    if config.type.endswith("-native"):
+        # As in the JAX package, no seed is passed: the engine's seed is 0.
+        from .native import NativeEnvBatch
+        return NativeEnvBatch(config.type)
+    if config.type in HOST_ENV_TYPES:
+        from .host import HostEnvBatch
+        host_config = config
+        if config.type.endswith("-host"):
+            host_config = dataclasses.replace(
+                config, type=config.type[: -len("-host")])
+        return HostEnvBatch(host_config)
+    raise ValueError(f"Unknown environment type: {config.type!r}")

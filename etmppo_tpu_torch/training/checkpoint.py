@@ -25,6 +25,7 @@ import torch
 from ..config import TrainConfig, config_from_dict, config_to_dict
 from ..interop import flax_to_state_dict, state_dict_to_flax
 from ..utils import flax_msgpack
+from ..utils.runtime import resolve_device
 
 FORMAT = "etmppo_tpu/flax-msgpack/v1"
 
@@ -68,7 +69,6 @@ def load_model(path: str, device="cuda"
     environment, and that config."""
     from ..envs.factory import create_env
     from ..models.actor_critic import ActorCriticModel
-    from .trainer import resolve_device
     device = resolve_device(device)
     payload = _read_payload(path)
     config = config_from_dict(payload["config"])

@@ -172,15 +172,20 @@ class RolloutFn:
         return final_state, batch
 
     def _last_value(self, state: RolloutState, last_indices):
-        """Bootstrap V(s_T) with the reference's shifted window
-        ``[max(e - L, 0), max(e - L, 0) + L)`` and the given slot indices."""
-        L = self.config.transformer.memory_length
-        e = state.episode_step
-        W = e.shape[0]
-        rows = (e - L).clamp(min=0)[:, None] + torch.arange(
-            L, device=self.device)
-        window = state.memory[torch.arange(W, device=self.device)[:, None],
-                              rows]
-        mask = self.kv_step.mask_table[e.clamp(0, L - 1)]
-        _, last_value, _ = self.model(state.obs, window, mask, last_indices)
-        return last_value
+        return bootstrap_value(self.model, state.obs, state.memory,
+                               state.episode_step, self.kv_step.mask_table,
+                               last_indices)
+
+
+def bootstrap_value(model, obs, memory, episode_step, mask_table,
+                    last_indices):
+    """V(s_T), with the reference's shifted window ``[max(e - L, 0),
+    max(e - L, 0) + L)`` of ``memory`` at each worker's episode step ``e``
+    and the given slot indices (the reference's quirk: the last step's)."""
+    L = mask_table.shape[-1]
+    e = episode_step
+    rows = (e - L).clamp(min=0)[:, None] + torch.arange(L, device=e.device)
+    window = memory[torch.arange(e.shape[0], device=e.device)[:, None], rows]
+    _, last_value, _ = model(obs, window, mask_table[e.clamp(0, L - 1)],
+                             last_indices)
+    return last_value

@@ -1,11 +1,12 @@
 """Training orchestration (counterpart of ``etmppo_tpu/training/trainer.py``).
 
 ``PPOTrainer(config, run_id, device)`` builds the env, the model, the rollout
-and the update on ``device``; ``train_one_update`` runs one rollout and one
-PPO update; ``run_training`` runs ``config.updates`` of them, saves a full
-checkpoint every ``checkpoint_interval`` updates and the final model as
-``<checkpoint_dir>/<run_id>.nn``; ``resume_from_checkpoint`` restores the
-latest checkpoint of the run.
+and the update on ``device`` (a host env, one with ``reset_all``, gets the
+host rollout of ``training/host_rollout.py``); ``train_one_update`` runs one
+rollout and one PPO update; ``run_training`` runs ``config.updates`` of
+them, saves a full checkpoint every ``checkpoint_interval`` updates and the
+final model as ``<checkpoint_dir>/<run_id>.nn``; ``resume_from_checkpoint``
+restores the latest checkpoint of the run.
 
 What the JAX package runs as fused device programs (``training/fused.py``)
 has no counterpart: PyTorch runs eagerly. The loss and kernel choice is this
@@ -31,19 +32,12 @@ from ..config import TrainConfig
 from ..envs.factory import create_env
 from ..models.actor_critic import ActorCriticModel
 from ..utils.profiling import annotate
+from ..utils.runtime import resolve_device
 from . import metrics as metrics_lib
 from .checkpoint import Checkpointer, save_model
+from .host_rollout import HostRolloutFn, HostRolloutState
 from .ppo import STAT_NAMES, PPOUpdate
 from .rollout import RolloutFn, RolloutState
-
-
-def resolve_device(device) -> torch.device:
-    """The device to run on; raises rather than fall back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "(--cpu) to run on the CPU")
-    return device
 
 
 def _check_supported(config: TrainConfig) -> None:
@@ -78,7 +72,15 @@ class PPOTrainer:
             generator=torch.Generator().manual_seed(config.seed))
         rollout_gen = torch.Generator(self.device).manual_seed(config.seed + 1)
         update_gen = torch.Generator(self.device).manual_seed(config.seed + 2)
-        self.rollout_fn = RolloutFn(config, self.env, self.model, rollout_gen)
+        # Host envs (the C++ engine or the Python process pool) expose the
+        # vectorized reset_all / step API instead of the batched protocol.
+        self.is_host_env = hasattr(self.env, "reset_all")
+        if self.is_host_env:
+            self.rollout_fn = HostRolloutFn(config, self.env, self.model,
+                                            rollout_gen)
+        else:
+            self.rollout_fn = RolloutFn(config, self.env, self.model,
+                                        rollout_gen)
         self.update_fn = PPOUpdate(config, self.model, self.max_episode_steps,
                                    update_gen, grouped=grouped)
         self.rollout_state = self.rollout_fn.init_state()
@@ -170,14 +172,20 @@ class PPOTrainer:
     # --- checkpoints ---------------------------------------------------
 
     def _training_state(self) -> Dict[str, Any]:
-        """Everything a resumed run needs to continue bit for bit."""
+        """Everything a resumed run needs to continue bit for bit. A host
+        env's own state lives in its processes or its engine and is not
+        saved: a resumed host run restores the obs into freshly started
+        envs, as in the JAX package, so it is not bit for bit."""
         rs = self.rollout_state
+        if self.is_host_env:
+            rollout_state = dict(obs=torch.from_numpy(rs.obs))
+        else:
+            rollout_state = dict(env_state=rs.env_state._asdict(), obs=rs.obs)
+        rollout_state.update(episode_step=rs.episode_step, memory=rs.memory)
         return dict(
             model=self.model.state_dict(),
             optimizer=self.update_fn.optimizer.state_dict(),
-            rollout_state=dict(env_state=rs.env_state._asdict(), obs=rs.obs,
-                               episode_step=rs.episode_step,
-                               memory=rs.memory),
+            rollout_state=rollout_state,
             rollout_generator=self.rollout_fn.generator.get_state(),
             update_generator=self.update_fn.generator.get_state(),
             update=self.update)
@@ -194,11 +202,16 @@ class PPOTrainer:
         self.update_fn.optimizer.load_state_dict(state["optimizer"])
         rs = state["rollout_state"]
         to_dev = lambda t: t.to(self.device)
-        env_state = type(self.rollout_state.env_state)(
-            **{k: to_dev(v) for k, v in rs["env_state"].items()})
-        self.rollout_state = RolloutState(
-            env_state, to_dev(rs["obs"]), to_dev(rs["episode_step"]),
-            to_dev(rs["memory"]))
+        if self.is_host_env:
+            self.rollout_state = HostRolloutState(
+                rs["obs"].numpy(), to_dev(rs["episode_step"]),
+                to_dev(rs["memory"]))
+        else:
+            env_state = type(self.rollout_state.env_state)(
+                **{k: to_dev(v) for k, v in rs["env_state"].items()})
+            self.rollout_state = RolloutState(
+                env_state, to_dev(rs["obs"]), to_dev(rs["episode_step"]),
+                to_dev(rs["memory"]))
         self.rollout_fn.generator.set_state(state["rollout_generator"])
         self.update_fn.generator.set_state(state["update_generator"])
         self.update = int(state["update"])
@@ -212,6 +225,8 @@ class PPOTrainer:
     def close(self) -> None:
         if self.writer is not None:
             self.writer.close()
+        if self.is_host_env:
+            self.env.close()
 
 
 def format_update(update: int, r: Dict[str, float]) -> str:

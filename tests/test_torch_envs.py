@@ -158,5 +158,7 @@ def test_factory():
                      4, "cpu")
     assert env.observation_shape == (84, 84, 3) and env.n_workers == 4
     assert env.action_branches == (3,) and env.max_episode_steps == 96
-    with pytest.raises(NotImplementedError):
+    # The host type goes to the process pool, which needs gym-minigrid, as
+    # in the JAX package.
+    with pytest.raises(ImportError, match="gym-minigrid"):
         create_env(EnvConfig(type="Minigrid-host"), 4, "cpu")

@@ -121,7 +121,9 @@ def test_factory_and_configs():
     assert draws.spots.shape == draws.targets.shape == (4, N_SPOTS, 2)
     step = env.sample_step_draws(torch.Generator().manual_seed(0))
     assert step.shape == (4, N_SPOTS, 2)
-    with pytest.raises(NotImplementedError, match="SearingSpotlights-host"):
+    # The host type goes to the process pool, which needs memory-gym, as in
+    # the JAX package.
+    with pytest.raises(ImportError, match="memory-gym"):
         create_env(EnvConfig(type="SearingSpotlights-host"), 4, "cpu")
 
 

@@ -121,9 +121,23 @@ def test_trainer_is_deterministic_given_the_seed(tmp_path):
     (dict(environment={"type": "CartPole-native"}), "CartPole-native"),
 ])
 def test_trainer_refuses_unported_options(tmp_path, overrides, match):
+    """The options still refused raise. A ``-native`` env type, refused
+    until the host path was ported, now trains through the host rollout."""
     cfg = config_from_dict(_tiny(tmp_path, **overrides))
-    with pytest.raises(NotImplementedError, match=match):
-        PPOTrainer(cfg, device="cpu", enable_metrics=False)
+    if not cfg.environment.type.endswith("-native"):
+        with pytest.raises(NotImplementedError, match=match):
+            PPOTrainer(cfg, device="cpu", enable_metrics=False)
+        return
+    from etmppo_tpu_torch.envs.native import NativeEnvBatch
+    from etmppo_tpu_torch.training.host_rollout import HostRolloutFn
+    trainer = PPOTrainer(cfg, device="cpu", enable_metrics=False)
+    try:
+        assert isinstance(trainer.env, NativeEnvBatch)
+        assert isinstance(trainer.rollout_fn, HostRolloutFn)
+        assert trainer.env.observation_shape == (4,)
+        assert cfg.environment.type == match
+    finally:
+        trainer.close()
 
 
 def test_trainer_raises_without_a_gpu(tmp_path, monkeypatch):
@@ -266,7 +280,10 @@ def test_importing_the_port_loads_no_jax():
             "etmppo_tpu_torch.utils.profiling, "
             "etmppo_tpu_torch.serve, etmppo_tpu_torch.serve_http, "
             "etmppo_tpu_torch.evaluate, etmppo_tpu_torch.enjoy, "
-            "etmppo_tpu_torch.utils.render, etmppo_tpu_torch.utils.flops; "
+            "etmppo_tpu_torch.utils.render, etmppo_tpu_torch.utils.flops, "
+            "etmppo_tpu_torch.utils.runtime, etmppo_tpu_torch.envs.native, "
+            "etmppo_tpu_torch.envs.host, etmppo_tpu_torch.envs.factory, "
+            "etmppo_tpu_torch.training.host_rollout; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'msgpack', 'optax', 'yaml', 'etmppo_tpu', "
             "'PIL')]; "
