@@ -39,7 +39,8 @@ Phases, each printing one line with its seconds:
                 same bits, and the grouped kernels' sort on the card must
                 be the stable (worker, start) sort. The same at the
                 Searing Spotlights shape (B=2048, W=32, S=864, P=256, L=96,
-                D=256, H=4). Times kernel, plain
+                D=256, H=4) and at headroom_768.yaml's (B=2048, W=32,
+                S=736, P=128, L=96, D=768, H=6). Times kernel, plain
                 version, a library yardstick (gather +
                 scaled_dot_product_attention, and for the backward autograd
                 through that graph) and the bound.
@@ -95,10 +96,10 @@ Phases, each printing one line with its seconds:
                 one minibatch through the kernel pair must match those of the
                 gathered-window path (plain PyTorch); and the PPO update is
                 timed with the plain and the kernel backward in turns.
-8. pocmemory:   30 PPO updates of PocMemory exactly as its YAML says (16
+8. pocmemory:   6 PPO updates of PocMemory exactly as its YAML says (16
                 workers x 128 steps, GTrXL 4 x 64, 4 epochs x 8 minibatches)
                 on the gathered-window loss, no kernel launched; prints the
-                steady env-steps/s, the success the 30th update reached
+                steady env-steps/s, the success the 6th update reached
                 (printed, not checked: the CPU test holds the bar), and one
                 more rollout and PPO update timed apart.
 9. cartpole:    three PPO updates of masked-velocity CartPole exactly as its
@@ -157,6 +158,41 @@ Phases, each printing one line with its seconds:
                 1e-4; prints each rollout's seconds and the busy share of a
                 traced pipelined rollout; then one PPO update on the host
                 batch with the kernel pair (120 launches of each).
+16. headroom:   headroom_768.yaml at full width (Mystery Path Grid, 32 x
+                512, TrXL 2 x 768, 6 heads of 128, memory 96, 3 epochs x 8
+                minibatches of 2048): two updates as the YAML says (float32),
+                then two with compute_dtype: bfloat16; B1 and B2 must launch
+                exactly 48 times per update in both, B3/B4 never, every stat
+                must be finite and every parameter float32. The bf16 run's
+                second update is traced (busy share). On one more bf16
+                rollout, one minibatch's loss and gradients through the
+                kernel pair must match those through the plain versions
+                (the same float32 casts around both) within twice the
+                distance of bfloat16 from float32 (a float32 copy of the
+                model) plus a bfloat16 ulp. Then one more rollout of each
+                and the PPO update in turns fp32, bf16, bf16, fp32; one more
+                PPO update of each traced with input shapes (its busy share
+                and the device ms of aten::copy_ on (W, S, D) tensors); the
+                boundary casts
+                timed alone at their shapes; the update's FLOPs and MFU in
+                both dtypes. The bf16 run's .nn is served with 64 streams
+                for 12 steps, held against its raw-memory formulation
+                (values within 2^-5, actions equal away from near ties); no
+                kernel may launch there.
+17. obs-uint8:  the MiniGrid flagship with obs_uint8: true at full width
+                beside the same config with float obs: the batch obs must be
+                uint8 and equal round(obs * 255).clamp(0, 255) of the float
+                run's rollout from the same seeds (bytes printed); two
+                updates (120 launches of B1 and B2 each), the first update's
+                stats within 5% + 1e-3 of the float run's; then one more
+                rollout of each and the PPO update in turns (float, uint8,
+                uint8, float).
+18. debug-nans: utils/runtime.set_debug_nans (the CLI's --debug-nans) on
+                the flagship: an unchecked update, then one under the checks
+                (stats finite, 120 launches of each), their seconds
+                printed; then a NaN learning rate must raise
+                FloatingPointError within its first update, and no check
+                may outlive the phase.
 No window-attention kernel may launch in phases 10-14. The flagship phase
 (4) also prints flagship-mfu: the FLOPs of a PPO update (counted_flops of
 one minibatch's forward and backward, plus window_attention_flops for the
@@ -218,7 +254,9 @@ FLAGSHIP_LAUNCHES = 120        # per update: 3 blocks x 5 epochs x 8 minibatches
 MYSTERY_LAUNCHES = 48          # per update: 2 blocks x 3 epochs x 8 minibatches
 MORTAR_LAUNCHES = 72           # per update: 3 blocks x 3 epochs x 8 minibatches
 SEARING_LAUNCHES = 48          # per update: 2 blocks x 3 epochs x 8 minibatches
-POC_UPDATES = 30               # PocMemory's learning run
+# PocMemory's run: its success is printed, not checked (the CPU test holds
+# the bar in 30 updates); cut from 30 as phases 16-18 came in.
+POC_UPDATES = 6
 # Serving (phases 10-13), on committed artifacts under models/.
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_NN = "minigrid-r3_s0.nn"
@@ -240,12 +278,14 @@ EVAL_EPISODES = 50
 # episodes per seed must land within EVAL_REWARD_TOL of it.
 EVAL_REWARD_IQM = 0.9685
 EVAL_REWARD_TOL = 0.02
-# (W, T, max_episode_steps, L, D, B) of the minibatches of the four
-# configurations that run the kernels.
+# (W, T, max_episode_steps, L, D, B) of the minibatches of the five
+# configurations that run the kernels, with 4 heads but where HEADS says.
 SHAPES = {"flagship": (16, 512, 96, 64, 384, 1024),
           "mysterypath": (32, 512, 128, 96, 256, 2048),
           "mortarmayhem": (32, 512, 120, 118, 384, 2048),
-          "searingspotlights": (32, 512, 256, 96, 256, 2048)}
+          "searingspotlights": (32, 512, 256, 96, 256, 2048),
+          "headroom": (32, 512, 128, 96, 768, 2048)}
+HEADS = {"headroom": 6}
 # The kernels, and the configuration whose path launches each.
 NAMES = ("window_attention_fwd", "window_attention_bwd",
          "window_attention_fwd_grouped", "window_attention_bwd_grouped")
@@ -306,7 +346,7 @@ def window_inputs(gen: torch.Generator, device, shape: str):
     ints = [(idx // T).int(), tl.start.reshape(-1)[idx],
             tl.n_valid.reshape(-1)[idx], tl.s_lo.reshape(-1)[idx]]
     args = [t.to(device).contiguous() for t in floats + ints + [mask]]
-    return args, 4
+    return args, HEADS.get(shape, 4)
 
 
 # Small cases, (B, W, S, P, L, D, H, layout): the MiniGrid flagship's width
@@ -379,9 +419,9 @@ def edge_inputs(gen: torch.Generator, device, case: str):
 
 
 def plan_shapes() -> dict:
-    """(L, D, H) of the three configurations' and of the edge cases'
-    windows."""
-    shapes = {name: (L, D, 4) for name, (_, _, _, L, D, _) in SHAPES.items()}
+    """(L, D, H) of the configurations' and of the edge cases' windows."""
+    shapes = {name: (L, D, HEADS.get(name, 4))
+              for name, (_, _, _, L, D, _) in SHAPES.items()}
     shapes.update({name: (L, D, heads) for name, (_, _, _, _, L, D, heads, _)
                    in EDGE_CASES.items()})
     return shapes
@@ -651,17 +691,18 @@ def train_counted(trainer, k, label: str, expected: dict,
     ``utils/profiling.trace``; after each update, each kernel of
     ``expected`` (name -> launches per update) must have launched that many
     times per update so far, every other kernel never, and every stat must
-    be finite. Returns the seconds of each update and the traced update's
-    ``device_busy`` shares (None without a trace)."""
+    be finite. Returns the seconds and the stats of each update and the
+    traced update's ``device_busy`` shares (None without a trace)."""
     from etmppo_tpu_torch.utils.profiling import trace
     for kernel in k.values():
         kernel.launches = 0
-    per_update = []
+    per_update, results = [], []
     for u in range(UPDATES):
         traced = u == 1 and trace_dir is not None
         tu = time.perf_counter()
         with (trace(trace_dir) if traced else contextlib.nullcontext()):
             stats = trainer.train_one_update()
+            results.append(stats)
             torch.cuda.synchronize()
             per_update.append(time.perf_counter() - tu)   # without the export
         bad = {n: v for n, v in stats.items() if not math.isfinite(v)}
@@ -674,13 +715,13 @@ def train_counted(trainer, k, label: str, expected: dict,
               f"loss {stats['loss']:.6f} entropy {stats['entropy']:.4f} "
               f"value_loss {stats['value_loss']:.6f}", flush=True)
     if trace_dir is None:
-        return per_update, None
+        return per_update, None, results
     from etmppo_tpu_torch.utils.profiling import TRACE_FILE, device_busy
     shares = device_busy(os.path.join(trace_dir, TRACE_FILE),
                          ("rollout", "ppo_update"))
     if shares["total"]["busy_s"] <= 0:
         raise RuntimeError(f"{label}: the trace holds no device activity")
-    return per_update, shares
+    return per_update, shares, results
 
 
 def busy_line(wall_s: float, shares: dict, rollout_s: float,
@@ -752,7 +793,7 @@ def run_flagship(device, k) -> list:
         try:
             torch.cuda.synchronize()
             phase("trainer-setup", t)
-            per_update, shares = train_counted(
+            per_update, shares, _ = train_counted(
                 trainer, k, "flagship", {n: FLAGSHIP_LAUNCHES
                                          for n in NAMES[:2]},
                 os.path.join(tmp, "trace"))
@@ -933,7 +974,7 @@ def run_mortarmayhem(device, k) -> list:
             phase("mortarmayhem-setup", t, kernel_shape(trainer,
                                                          "mortarmayhem"))
             t = time.perf_counter()
-            per_update, _ = train_counted(
+            per_update, _, _ = train_counted(
                 trainer, k, "mortarmayhem",
                 {n: MORTAR_LAUNCHES for n in NAMES[2:]})
             launches = [k[n].launches for n in NAMES]
@@ -1000,7 +1041,7 @@ def run_searingspotlights(device, k) -> list:
             phase("searingspotlights-setup", t,
                   kernel_shape(trainer, "searingspotlights"))
             t = time.perf_counter()
-            per_update, _ = train_counted(
+            per_update, _, _ = train_counted(
                 trainer, k, "searingspotlights",
                 {n: SEARING_LAUNCHES for n in NAMES[:2]})
             launches = [k[n].launches for n in NAMES]
@@ -1053,7 +1094,7 @@ def run_gathered(device, k, name: str, raw: dict, updates: int,
             torch.cuda.synchronize()
             phase(f"{name}-setup", t)
             t = time.perf_counter()
-            per_update, shares = train_counted(
+            per_update, shares, _ = train_counted(
                 trainer, k, name, {},
                 os.path.join(tmp, "trace") if traced else None)
             result = {}
@@ -1102,14 +1143,17 @@ def artifact(name: str) -> str:
     return path
 
 
-def hold_raw_memory(server, steps: int, gen) -> str:
+def hold_raw_memory(server, steps: int, gen, rtol: float = SERVE_RTOL,
+                    near_ties: bool = False) -> str:
     """``steps`` greedy steps of ``server`` (all streams) on its env's
     observations, the env stepped with the served actions, with a third of
     the streams reset half-way and the odd streams inactive every fourth
     step; each step held against the raw-memory formulation
     (``model.forward`` over ``memory[index_table[t]]``, ``memory[t] =
-    new_memory`` where active): actions equal, values within SERVE_RTOL of
-    the largest."""
+    new_memory`` where active): values within ``rtol`` of the largest (at
+    least 1), and actions equal; with ``near_ties``, equal where the raw
+    path's top-2 logit gap of every branch exceeds twice ``rtol`` of the
+    largest logit, as a bfloat16 model may round a near tie either way."""
     from etmppo_tpu_torch.envs.factory import create_env
     from etmppo_tpu_torch.ops.memory_index import (build_memory_indices,
                                                    build_memory_mask)
@@ -1126,7 +1170,7 @@ def hold_raw_memory(server, steps: int, gen) -> str:
     t = torch.zeros(M, dtype=torch.int64, device=dev)
     rows = torch.arange(M, device=dev)
     server.reset(range(M))
-    worst = 0.0
+    worst, compared = 0.0, 0
     for step in range(steps):
         active = torch.ones(M, dtype=torch.bool, device=dev)
         if step % 4 == 3:
@@ -1144,11 +1188,18 @@ def hold_raw_memory(server, steps: int, gen) -> str:
         memory[rows[active], t[active]] = new_memory[active]
         t = t + active.long()
         greedy = torch.stack([lg.argmax(dim=-1) for lg in logits], dim=-1)
-        if not np.array_equal(actions, greedy.cpu().numpy()):
+        clear = np.ones(M, bool)
+        if near_ties:
+            gaps = torch.stack([lg.topk(2, dim=-1).values.diff().neg()[:, 0]
+                                for lg in logits]).min(0).values
+            scale = max(lg.abs().max().item() for lg in logits)
+            clear = (gaps > 2 * rtol * scale).cpu().numpy()
+        compared += int(clear.sum())
+        if not np.array_equal(actions[clear], greedy.cpu().numpy()[clear]):
             raise RuntimeError(f"serve, step {step}: greedy actions differ "
                                "from the raw-memory formulation's")
         err = (torch.as_tensor(values, device=dev) - value_raw).abs().max()
-        tol = SERVE_RTOL * max(1.0, value_raw.abs().max().item())
+        tol = rtol * max(1.0, value_raw.abs().max().item())
         if not err.item() <= tol:
             raise RuntimeError(f"serve, step {step}: values differ from the "
                                f"raw-memory formulation's by {err.item()} > "
@@ -1158,8 +1209,10 @@ def hold_raw_memory(server, steps: int, gen) -> str:
             actions, device=dev), env.sample_step_draws(gen))
     if not np.array_equal(server.steps, t.cpu().numpy()):
         raise RuntimeError("serve: step counters differ from the raw path's")
-    return (f"{steps} steps held against the raw-memory path: actions equal, "
-            f"max value diff {worst:.3e}")
+    return (f"{steps} steps held against the raw-memory path: actions equal"
+            + (f" in {compared} of {steps * M} stream-steps clear of a near "
+               "tie" if near_ties else "")
+            + f", max value diff {worst:.3e}")
 
 
 def hold_step_many(path: str, device, gen, obs_shape) -> str:
@@ -1799,6 +1852,389 @@ def run_hostpool(device, k) -> list:
 
 
 
+# --- phases 16-18: the trainer options and --debug-nans ----------------------
+
+HEADROOM_LAUNCHES = 48         # per update: 2 blocks x 3 epochs x 8 minibatches
+HEADROOM_SERVE_STEPS = 12
+BF16_ULP = 2.0 ** -7
+# A bfloat16 artifact served against its raw-memory formulation: the two
+# compute the same bfloat16 products in other shapes, so a GEMM may round
+# an element to the neighbouring bfloat16 value (2^-8 of it), and a few such
+# roundings through the blocks move a value by a few ulps: values within 4
+# ulps (2^-5) of the largest (at least 1); actions equal away from near
+# ties (hold_raw_memory's near_ties).
+SERVE_BF16_RTOL = 2.0 ** -5
+# obs_uint8 against float obs: the quantized obs differ by at most half a
+# level (1/510); the first minibatch's loss moves by ~1e-3 of itself and
+# later minibatches start from parameters that AdamW moved apart by up to lr
+# where a gradient is at noise level. Each stat of the first update within
+# 5% of the float run's plus 1e-3 (the KL and the clip fraction lie near 0).
+UINT8_STAT_RTOL, UINT8_STAT_ATOL = 0.05, 1e-3
+
+
+def _assert_bf16_close(got, ref, ref32, what: str) -> str:
+    """``max|got - ref| <= 2 * max|ref - ref32| + 2^-7 * max|ref32|``: two
+    bfloat16 computations of one function (through the kernels and through
+    their plain versions, the same float32 casts around both) differ by at
+    most twice bfloat16's own distance from float32 (the same model in
+    float32) plus one bfloat16 ulp of the largest value, the criterion of
+    tests/test_torch_mixed_precision.py. The kernels differ from the plain
+    versions by float32 rounding only, so a flipped bfloat16 rounding after
+    the cast back is what they can add."""
+    err = (got - ref).abs().max().item()
+    bound = (2 * (ref - ref32).abs().max().item()
+             + BF16_ULP * ref32.abs().max().item())
+    if not err <= bound:
+        raise RuntimeError(f"{what}: max diff {err} > {bound}")
+    return f"{what} diff {err:.3e} (bound {bound:.3e})"
+
+
+def bf16_minibatch_agreement(trainer, batch) -> str:
+    """One minibatch of ``batch`` (``trainer`` computes in bfloat16): loss
+    and gradients through the kernel pair, through the plain versions, and
+    through the plain versions in a float32 copy of the model, held by
+    ``_assert_bf16_close``."""
+    from etmppo_tpu_torch.models.actor_critic import ActorCriticModel
+    from etmppo_tpu_torch.training.ppo import PPOUpdate
+    upd, cfg = trainer.update_fn, trainer.config
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = ActorCriticModel(cfg32, trainer.env.observation_shape,
+                               trainer.env.action_branches,
+                               trainer.max_episode_steps,
+                               device=trainer.device)
+    model32.load_state_dict(trainer.model.state_dict())
+    upd32 = PPOUpdate(cfg32, model32, trainer.max_episode_steps, None)
+    gen = torch.Generator(trainer.device).manual_seed(7)
+    idx = torch.randperm(cfg.batch_size, generator=gen,
+                         device=trainer.device)[:cfg.mini_batch_size]
+    kernels = (upd.kernel, upd.backward_kernel)
+    results = []
+    for u, pair in ((upd, kernels), (upd, (None, None)),
+                    (upd32, (None, None))):
+        timeline, slots, fields = u.prepare_timeline(batch)
+        u.kernel, u.backward_kernel = pair
+        u.model.zero_grad(set_to_none=True)
+        loss, _ = u.loss_timeline(u.minibatch(fields, idx), timeline, slots,
+                                  0.1, 0.001)
+        loss.backward()
+        results.append((loss.detach().reshape(1), torch.cat(
+            [p.grad.reshape(-1) for p in u.model.parameters()])))
+        u.model.zero_grad(set_to_none=True)
+    upd.kernel, upd.backward_kernel = kernels
+    (loss_k, grad_k), (loss_p, grad_p), (loss_32, grad_32) = results
+    if not (torch.isfinite(loss_k).all() and torch.isfinite(grad_k).all()):
+        raise RuntimeError("bf16 minibatch: loss or gradients not finite")
+    return (_assert_bf16_close(loss_k, loss_p, loss_32, "loss") + "; "
+            + _assert_bf16_close(grad_k, grad_p, grad_32, "gradients")
+            + f" (bf16 loss {loss_k.item():.6f}, fp32 {loss_32.item():.6f})")
+
+
+def split_in_turns(trainers: dict, pair) -> tuple:
+    """One more rollout of each trainer, timed, then one PPO update of each
+    on its batch with the kernel ``pair`` in turns (a, b, b, a). Returns
+    (phase start, detail, (rollout seconds, mean update seconds), batches),
+    each by name."""
+    t = time.perf_counter()
+    batches, rollout_s = {}, {}
+    for name, trainer in trainers.items():
+        tr = time.perf_counter()
+        _, batches[name] = trainer.rollout_fn(trainer.rollout_state)
+        torch.cuda.synchronize()
+        rollout_s[name] = time.perf_counter() - tr
+    turns = list(trainers) + list(trainers)[::-1]
+    secs = [update_seconds(trainers[n], batches[n], pair) for n in turns]
+    mean = {n: sum(s for m, s in zip(turns, secs) if m == n) / 2
+            for n in trainers}
+    return t, ("rollout " + ", ".join(f"{n} {s:.2f}s"
+                                      for n, s in rollout_s.items())
+               + "; ppo update in turns " + ", ".join(
+                   f"{n} {s:.3f}" for n, s in zip(turns, secs))
+               + "s; mean " + ", ".join(f"{n} {m:.3f}s"
+                                        for n, m in mean.items())), (
+        rollout_s, mean), batches
+
+
+def traced_update(trainer, batch, pair, log_dir: str) -> tuple:
+    """One PPO update of ``trainer`` on ``batch`` with the kernel ``pair``
+    under ``utils/profiling.trace`` with input shapes (the update alone: a
+    rollout's events would take minutes to group). Returns its
+    ``device_busy`` shares, and the device ms and the calls of
+    ``aten::copy_`` on tensors of the timeline's per-block shape (W, S, D):
+    in a bfloat16 update, the float32 casts of the timeline K/V at the
+    kernels' boundary and the bfloat16 casts of their gradients, and the
+    casts of the pre-LN ``norm_kv`` output and its gradient; in both dtypes,
+    LayerNorm's copy of its strided input."""
+    from etmppo_tpu_torch.utils.profiling import (TRACE_FILE, annotate,
+                                                  device_busy, trace)
+    cfg, trx = trainer.config, trainer.config.transformer
+    shape = [cfg.n_workers, trainer.max_episode_steps + cfg.worker_steps
+             + trx.memory_length, trx.embed_dim]
+    upd = trainer.update_fn
+    kept = upd.kernel, upd.backward_kernel
+    upd.kernel, upd.backward_kernel = pair
+    with trace(log_dir, record_shapes=True) as prof:
+        with annotate("ppo_update"):
+            upd(batch, 1e-4, 0.1, 0.001)
+            torch.cuda.synchronize()
+    upd.kernel, upd.backward_kernel = kept
+    ms, calls = 0.0, 0
+    for e in prof.key_averages(group_by_input_shape=True):
+        shapes = e.input_shapes or []
+        if e.key == "aten::copy_" and shapes and list(shapes[0]) == shape:
+            ms += e.self_device_time_total / 1e3
+            calls += e.count
+    busy = device_busy(os.path.join(log_dir, TRACE_FILE), ["ppo_update"])
+    return busy["ppo_update"], ms, calls
+
+
+def boundary_cast_ms(trainer) -> float:
+    """Device ms a bfloat16 PPO update of ``trainer`` spends in the float32
+    casts at the window-attention kernels' boundary, each cast timed alone
+    at its shape: per block and minibatch, the timeline K and V (W, S, D)
+    and the PE K and V (P, D) to float32 and their gradients back to
+    bfloat16, q (B, D) to float32 and the output back, and the same two in
+    the backward."""
+    cfg, trx = trainer.config, trainer.config.transformer
+    W, D = cfg.n_workers, trx.embed_dim
+    S = trainer.max_episode_steps + cfg.worker_steps + trx.memory_length
+    total = 0.0
+    for shape, count in (((W, S, D), 2), ((trainer.max_episode_steps, D), 2),
+                         ((cfg.mini_batch_size, D), 2)):
+        x = torch.randn(shape, device=trainer.device)
+        x16 = x.to(torch.bfloat16)
+        total += count * (cuda_ms(lambda: x16.float())
+                          + cuda_ms(lambda: x.to(torch.bfloat16)))
+    return total * trx.num_blocks * cfg.epochs * cfg.n_mini_batch
+
+
+def run_headroom(device, k) -> list:
+    """Phase 16: headroom_768.yaml at full width (Mystery Path Grid, 32 x
+    512, TrXL 2 x 768, 6 heads, memory 96) in float32 and in bfloat16;
+    returns the launches of the counted runs (two updates of each), in the
+    order of NAMES."""
+    from etmppo_tpu_torch.config import HEADROOM_768, config_from_dict
+    from etmppo_tpu_torch.serve import PolicyServer
+    from etmppo_tpu_torch.training.trainer import PPOTrainer
+    t = time.perf_counter()
+    pair = (k[NAMES[0]], k[NAMES[1]])
+    expected = {n: HEADROOM_LAUNCHES for n in NAMES[:2]}
+    trainers, per_update, shares = {}, {}, {}
+    launches = [0] * len(NAMES)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for dtype in ("float32", "bfloat16"):
+                config = dataclasses.replace(
+                    config_from_dict(HEADROOM_768), updates=UPDATES,
+                    compute_dtype=dtype, summary_dir=tmp, checkpoint_dir=tmp)
+                trainer = trainers[dtype] = PPOTrainer(
+                    config, run_id=f"headroom_{dtype}", device=device)
+                torch.cuda.synchronize()
+                phase("headroom-setup", t, f"{dtype}: " + kernel_shape(
+                    trainer, "headroom"))
+                t = time.perf_counter()
+                # the bf16 run's second update traced (a full update's
+                # trace takes the host about a minute to write and read)
+                per_update[dtype], shares[dtype], _ = train_counted(
+                    trainer, k, f"headroom {dtype}", expected,
+                    os.path.join(tmp, "trace") if dtype == "bfloat16"
+                    else None)
+                launches = [a + k[n].launches
+                            for a, n in zip(launches, NAMES)]
+                params = {p.dtype for p in trainer.model.parameters()}
+                if params != {torch.float32}:
+                    raise RuntimeError(f"headroom {dtype}: parameters {params}")
+                phase("headroom", t,
+                      f"{dtype}: {UPDATES} updates, launches fwd "
+                      f"{k[NAMES[0]].launches} bwd {k[NAMES[1]].launches}; "
+                      "s/update " + " ".join(f"{s:.2f}"
+                                             for s in per_update[dtype])
+                      + (" (update 2 traced)" if shares[dtype] else "")
+                      + "; parameters float32")
+                t = time.perf_counter()
+            bf16 = trainers["bfloat16"]
+            if bf16.model.compute_dtype != torch.bfloat16:
+                raise RuntimeError("headroom: the bf16 model is not bf16")
+            _, batch = bf16.rollout_fn(bf16.rollout_state)
+            phase("headroom-check", t, bf16_minibatch_agreement(bf16, batch))
+            del batch
+            t, detail, (rollout_s, mean), batches = split_in_turns(
+                trainers, pair)
+            phase("headroom-split", t, detail)
+            t = time.perf_counter()
+            traced = {d: traced_update(trainer, batches[d], pair,
+                                       os.path.join(tmp, f"update_{d}"))
+                      for d, trainer in trainers.items()}
+            phase("headroom-busy", t, "bfloat16: " + busy_line(
+                per_update["bfloat16"][1], shares["bfloat16"],
+                rollout_s["bfloat16"], mean["bfloat16"]) + "; " + "; ".join(
+                f"{d}: a traced PPO update, device busy "
+                f"{busy['busy_share'] * 100:.1f}% of {busy['wall_s']:.3f}s, "
+                f"{busy['busy_s'] / mean[d] * 100:.1f}% of the untraced "
+                f"{mean[d]:.3f}s; aten::copy_ of (W, S, D) tensors {ms:.3f} "
+                f"ms in {calls} calls" for d, (busy, ms, calls)
+                in traced.items())
+                + f"; the boundary casts, each timed alone: "
+                  f"{boundary_cast_ms(bf16):.3f} ms of device time a bf16 "
+                  "update")
+            for d, trainer in trainers.items():
+                t = time.perf_counter()
+                phase("headroom-mfu", t, f"{d}: " + update_mfu(
+                    trainer, batches[d], mean[d]))
+            del batches
+            t = time.perf_counter()
+            bf16._save_model()
+            path = os.path.join(tmp, "headroom_bfloat16.nn")
+            for kernel in k.values():
+                kernel.launches = 0
+            server = PolicyServer(path, SERVE_STREAMS, greedy=True,
+                                  device=device)
+            if server.model.compute_dtype != torch.bfloat16:
+                raise RuntimeError("headroom: the served model is not bf16")
+            detail = hold_raw_memory(server, HEADROOM_SERVE_STEPS,
+                                     torch.Generator(device).manual_seed(0),
+                                     rtol=SERVE_BF16_RTOL, near_ties=True)
+            check_launches(k.values(), 0, "headroom serve")
+            phase("headroom-serve", t,
+                  f"headroom_bfloat16.nn (bf16, M={SERVE_STREAMS}): {detail};"
+                  " no kernel launched")
+        finally:
+            for trainer in trainers.values():
+                trainer.close()
+    return launches
+
+
+def run_obs_uint8(device, k) -> list:
+    """Phase 17: the MiniGrid flagship with obs_uint8 at full width beside
+    the same config with float obs; returns the launches of the counted
+    run, in the order of NAMES."""
+    from etmppo_tpu_torch.config import MINIGRID_FLAGSHIP, config_from_dict
+    from etmppo_tpu_torch.training.ppo import STAT_NAMES
+    from etmppo_tpu_torch.training.rollout import quantize_obs
+    from etmppo_tpu_torch.training.trainer import PPOTrainer
+    t = time.perf_counter()
+    trainers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for obs_uint8 in (False, True):
+                config = dataclasses.replace(
+                    config_from_dict(MINIGRID_FLAGSHIP), updates=UPDATES,
+                    obs_uint8=obs_uint8, summary_dir=tmp, checkpoint_dir=tmp)
+                trainers[obs_uint8] = PPOTrainer(
+                    config, run_id=f"uint8_{obs_uint8}", device=device)
+            batches = {u: tr.rollout_fn(tr.rollout_state)[1]
+                       for u, tr in trainers.items()}
+            obs32, obs8 = batches[False].obs, batches[True].obs
+            if obs8.dtype != torch.uint8 or not torch.equal(
+                    obs8, quantize_obs(obs32)):
+                raise RuntimeError("obs-uint8: the batch obs are not the "
+                                   "float run's quantized")
+            same = all(torch.equal(getattr(batches[False], f),
+                                   getattr(batches[True], f))
+                       for f in ("values", "actions", "tape"))
+            phase("obs-uint8-batch", t,
+                  f"batch obs uint8 equal round(obs * 255).clamp(0, 255) of "
+                  f"the float run's rollout from the same seeds; "
+                  f"{obs32.nbytes / 1e6:.1f} MB float32 against "
+                  f"{obs8.nbytes / 1e6:.1f} MB uint8; values, actions and "
+                  f"tape {'equal' if same else 'differ'}")
+            del batches, obs32, obs8
+            t = time.perf_counter()
+            first32 = trainers[False].train_one_update()
+            torch.cuda.synchronize()
+            float_s = time.perf_counter() - t
+            t = time.perf_counter()
+            per_update, _, results = train_counted(
+                trainers[True], k, "obs-uint8",
+                {n: FLAGSHIP_LAUNCHES for n in NAMES[:2]})
+            launches = [k[n].launches for n in NAMES]
+            first8 = results[0]
+            worst = 0.0
+            for name in STAT_NAMES:
+                err = abs(first8[name] - first32[name])
+                tol = UINT8_STAT_RTOL * abs(first32[name]) + UINT8_STAT_ATOL
+                if not err <= tol:
+                    raise RuntimeError(f"obs-uint8: update 1 {name} "
+                                       f"{first8[name]} vs float "
+                                       f"{first32[name]} (tol {tol})")
+                worst = max(worst, err / tol)
+            phase("obs-uint8", t,
+                  f"{UPDATES} updates, launches fwd {launches[0]} bwd "
+                  f"{launches[1]}; s/update " + " ".join(
+                      f"{s:.2f}" for s in per_update)
+                  + f" (float obs: update 1 {float_s:.2f}s); update 1 stats "
+                  f"within {worst:.2f} of their tolerance of the float run's "
+                  f"(loss {first8['loss']:.6f} vs {first32['loss']:.6f})")
+            phase("obs-uint8-split", *split_in_turns(
+                {"float obs": trainers[False], "uint8 obs": trainers[True]},
+                (k[NAMES[0]], k[NAMES[1]]))[:2])
+        finally:
+            for trainer in trainers.values():
+                trainer.close()
+    return launches
+
+
+def run_debug_nans(device, k) -> list:
+    """Phase 18: --debug-nans (utils/runtime.set_debug_nans) on the MiniGrid
+    flagship at full width: an unchecked update, one under the checks (stats
+    finite, the kernel pair launched as always), then one with a NaN
+    learning rate, which must raise FloatingPointError; returns the
+    launches of the checked update, in the order of NAMES."""
+    from etmppo_tpu_torch.config import (MINIGRID_FLAGSHIP, ScheduleConfig,
+                                         config_from_dict)
+    from etmppo_tpu_torch.training.trainer import PPOTrainer
+    from etmppo_tpu_torch.utils import runtime
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        config = dataclasses.replace(
+            config_from_dict(MINIGRID_FLAGSHIP), summary_dir=tmp,
+            checkpoint_dir=tmp)
+        trainer = PPOTrainer(config, run_id="debug_nans", device=device)
+        try:
+            seconds = {}
+            for checked in (False, True):
+                if checked:
+                    runtime.set_debug_nans(True)
+                    runtime.name_modules(trainer.model)
+                for kernel in k.values():
+                    kernel.launches = 0
+                tu = time.perf_counter()
+                stats = trainer.train_one_update()
+                torch.cuda.synchronize()
+                seconds[checked] = time.perf_counter() - tu
+                bad = {n: v for n, v in stats.items() if not math.isfinite(v)}
+                if bad:
+                    raise RuntimeError(f"debug-nans: non-finite stats {bad}")
+                check_launches((k[NAMES[0]], k[NAMES[1]]), FLAGSHIP_LAUNCHES,
+                               "debug-nans")
+                check_launches((k[NAMES[2]], k[NAMES[3]]), 0, "debug-nans")
+            launches = [k[n].launches for n in NAMES]
+            phase("debug-nans", t,
+                  f"a flagship update under the checks {seconds[True]:.2f}s "
+                  f"(unchecked {seconds[False]:.2f}s, "
+                  f"{seconds[True] / seconds[False]:.2f}x), launches fwd "
+                  f"{launches[0]} bwd {launches[1]}, stats finite")
+            t = time.perf_counter()
+            nan = float("nan")
+            trainer.config = dataclasses.replace(
+                config, learning_rate_schedule=ScheduleConfig(nan, nan))
+            try:
+                trainer.train_one_update()
+            except FloatingPointError as e:
+                raised = str(e)
+            else:
+                raise RuntimeError("debug-nans: a NaN learning rate did not "
+                                   "raise FloatingPointError")
+            phase("debug-nans-raise", t,
+                  f"a NaN learning rate raised FloatingPointError in its "
+                  f"first update: {raised[:160]}")
+        finally:
+            runtime.set_debug_nans(False)
+            trainer.close()
+    if runtime.debug_nans_enabled() or torch.is_anomaly_enabled():
+        raise RuntimeError("debug-nans: the checks outlived the phase")
+    return launches
+
+
 def update_mfu(trainer, batch, update_s: float) -> str:
     """The FLOPs of one PPO update of ``trainer`` (``counted_flops`` of one
     minibatch's forward and backward through the kernel pair, plus
@@ -1918,6 +2354,12 @@ def main() -> int:
     run_native(device, k, device_rates)
     torch.cuda.empty_cache()
     launches["hostpool"] = run_hostpool(device, k)
+    torch.cuda.empty_cache()
+    launches["headroom"] = run_headroom(device, k)
+    torch.cuda.empty_cache()
+    launches["obs_uint8"] = run_obs_uint8(device, k)
+    torch.cuda.empty_cache()
+    launches["debug_nans"] = run_debug_nans(device, k)
     check_float32("before the result line")
 
     entries = []

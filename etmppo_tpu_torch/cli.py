@@ -1,19 +1,25 @@
 """Command-line entry points (counterpart of ``etmppo_tpu/cli.py``).
 
-Train:  python -m etmppo_tpu_torch.cli --config=<yaml or json> --run-id=<id> \
-            [--cpu] [--resume] [--updates=N] [--profile=DIR] [--seeds=N]
+Train:  python -m etmppo_tpu_torch.cli [--config=<yaml or json>] \
+            [--run-id=<id>] [--cpu] [--resume] [--updates=N] \
+            [--profile=DIR] [--seeds=N] [--debug-nans]
 Enjoy:  python -m etmppo_tpu_torch.enjoy --model=<path> [--episodes=N] \
             [--cpu] [--no-render] [--render-dir=DIR]
 
 Both run on the CUDA device unless ``--cpu`` is given; without a GPU and
-without ``--cpu`` it raises. A ``.json`` config needs no PyYAML. ``--resume``
+without ``--cpu`` it raises. A ``.json`` config needs no PyYAML; without
+``--config`` the CLI trains ``config.POC_MEMORY``, the JAX CLI's default
+``poc_memory_env.yaml`` as a dict. ``--resume``
 continues from the run's latest checkpoint (``checkpoint_interval > 0``);
 the final model is saved as ``<checkpoint_dir>/<run-id>.nn``. ``--profile``
 writes a torch.profiler Chrome trace of training to
 ``DIR/<run-id>/trace.json``. ``--seeds N``
 trains seeds ``seed .. seed + N - 1`` one after another as
 ``<run-id>_s<seed>`` and prints the mean and std of their final
-``reward_mean``.
+``reward_mean``. ``--debug-nans`` (``jax_debug_nans``) raises
+``FloatingPointError`` at the first NaN or infinity of a forward output, a
+backward function or a parameter after an optimizer step
+(``utils/runtime.set_debug_nans``), and turns the checks off at the end.
 """
 from __future__ import annotations
 
@@ -24,8 +30,10 @@ import json
 import os
 
 
-def _read_config(path: str):
-    from .config import config_from_dict, load_config
+def _read_config(path):
+    from .config import POC_MEMORY, config_from_dict, load_config
+    if path is None:
+        return config_from_dict(POC_MEMORY)
     if path.endswith(".json"):
         with open(path) as f:
             return config_from_dict(json.load(f))
@@ -36,8 +44,9 @@ def train_main(argv=None):
     """Returns the last seed's training result."""
     parser = argparse.ArgumentParser(
         description="Train a TrXL PPO agent with PyTorch")
-    parser.add_argument("--config", required=True,
-                        help="Path to a yaml or json config file")
+    parser.add_argument("--config", default=None,
+                        help="Path to a yaml or json config file (default: "
+                             "PocMemory, etmppo_tpu_torch.config.POC_MEMORY)")
     parser.add_argument("--run-id", default="run", dest="run_id",
                         help="Tag for the summaries and the saved model")
     parser.add_argument("--cpu", action="store_true",
@@ -51,8 +60,23 @@ def train_main(argv=None):
     parser.add_argument("--seeds", type=int, default=1,
                         help="Train N seeds one after another; models saved "
                              "as <run-id>_s<seed>.nn")
+    parser.add_argument("--debug-nans", action="store_true",
+                        help="Raise FloatingPointError at the first NaN or "
+                             "infinity (checks that sync with the device)")
     args = parser.parse_args(argv)
+    if not args.debug_nans:
+        return _train_seeds(args)
+    from .utils.runtime import set_debug_nans
+    set_debug_nans(True)
+    try:
+        return _train_seeds(args)
+    finally:
+        set_debug_nans(False)
 
+
+def _train_seeds(args):
+    """Trains ``args.seeds`` seeds one after another; returns the last
+    seed's training result."""
     from .training.trainer import PPOTrainer
     from .utils.profiling import trace
 

@@ -108,6 +108,18 @@ MYSTERY_PATH_GRID: Dict[str, Any] = {
     "pallas_backward": True,
 }
 
+# ... the same scaled to embed 768 (head width 128), where the matrix
+# products, and so compute_dtype: bfloat16, weigh most
+# (etmppo_tpu/configs/headroom_768.yaml) ...
+HEADROOM_768: Dict[str, Any] = {
+    **MYSTERY_PATH_GRID,
+    "updates": 8,
+    "hidden_layer_size": 768,
+    "transformer": dict(MYSTERY_PATH_GRID["transformer"], embed_dim=768,
+                        num_heads=6),
+    "checkpoint_interval": 0,
+}
+
 
 # ... and the MemoryGym Mortar Mayhem Grid long-memory flagship
 # (etmppo_tpu/configs/mortar_mayhem_grid.yaml).
@@ -356,7 +368,8 @@ class TrainConfig:
     clip_range_schedule: ScheduleConfig = field(
         default_factory=lambda: ScheduleConfig(0.2, 0.2, 1.0, 200))
     seed: int = 0
-    # Only "float32" is supported by this package's trainer.
+    # "float32" or "bfloat16": the dtype of the CNN, the Dense layers and the
+    # transformer; parameters stay float32 (utils/runtime.compute_dtype).
     compute_dtype: str = "float32"
     # Use the CUDA window-attention kernel in the PPO loss.
     use_pallas_attention: bool = False

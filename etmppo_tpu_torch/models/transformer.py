@@ -20,6 +20,15 @@ Entry points (all queries are length 1, shape (B, D)):
 * ``forward_with_kv`` on pre-projected K/V windows;
 * ``forward_with_ops`` where each block's attention contraction is an op
   (the CUDA window-attention kernel in training).
+
+A compute ``dtype`` (``float32`` or ``bfloat16``) follows flax's ``dtype=``
+semantics, not ``torch.autocast``'s: the parameters stay float32; each
+linear layer and GRU gate casts its input, weight and bias to the dtype and
+computes in it; LayerNorm takes its statistics in float32 and casts its
+output to the dtype; the attention energies are the dtype's (masked in it)
+and the scaled softmax and the mix with V run in float32, as JAX promotes
+them; ``project_memory*`` and ``pe_kv*`` return K/V in the dtype. In float32
+every cast is the identity and the model computes what it always did.
 """
 from __future__ import annotations
 
@@ -50,12 +59,41 @@ def sinusoidal_position_table(max_steps: int, dim: int,
     return np.concatenate([np.sin(sinusoid), np.cos(sinusoid)], axis=-1)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype``: input, weight and
+    bias cast to it (flax's ``Dense(dtype=...)``); float32 parameters."""
+
+    def __init__(self, fan_in: int, fan_out: int, bias: bool, device,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(fan_in, fan_out, bias=bias, device=device)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` (eps 1e-5) as flax's ``LayerNorm(dtype=...)``:
+    statistics and affine in float32, the output cast to
+    ``compute_dtype``."""
+
+    def __init__(self, dim: int, device,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=1e-5, device=device)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(self.compute_dtype)
+
+
 def _linear(fan_in: int, fan_out: int, bias: bool, device, generator,
-            gain: Optional[float] = None, bias_fan_in: Optional[int] = None
-            ) -> nn.Linear:
-    """nn.Linear with the reference's init: orthogonal(gain) weight when
+            gain: Optional[float] = None, bias_fan_in: Optional[int] = None,
+            dtype: torch.dtype = torch.float32) -> Linear:
+    """``Linear`` with the reference's init: orthogonal(gain) weight when
     ``gain`` is given, else U(+-1/sqrt(fan_in)); bias U(+-1/sqrt(bias_fan_in))."""
-    layer = nn.Linear(fan_in, fan_out, bias=bias, device=device)
+    layer = Linear(fan_in, fan_out, bias, device, dtype)
     if gain is None:
         uniform_fan_in_(layer.weight, fan_in, generator)
     else:
@@ -69,15 +107,16 @@ class MultiHeadAttention(nn.Module):
     """Masked multi-head attention with the sqrt(embed_dim) scale. Bias-free
     Q/K/V projections, biased output projection."""
 
-    def __init__(self, embed_dim: int, num_heads: int, device, generator):
+    def __init__(self, embed_dim: int, num_heads: int, device, generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         D = embed_dim
         self.embed_dim = D
         self.num_heads = num_heads
-        self.values = _linear(D, D, False, device, generator)
-        self.keys = _linear(D, D, False, device, generator)
-        self.queries = _linear(D, D, False, device, generator)
-        self.fc_out = _linear(D, D, True, device, generator)
+        self.values = _linear(D, D, False, device, generator, dtype=dtype)
+        self.keys = _linear(D, D, False, device, generator, dtype=dtype)
+        self.queries = _linear(D, D, False, device, generator, dtype=dtype)
+        self.fc_out = _linear(D, D, True, device, generator, dtype=dtype)
 
     def project_kv(self, memory: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -85,15 +124,18 @@ class MultiHeadAttention(nn.Module):
 
     def attend(self, k: torch.Tensor, v: torch.Tensor, query: torch.Tensor,
                mask: torch.Tensor) -> torch.Tensor:
-        """k/v: (B, L, D) projected; query: (B, D) unprojected; mask (B, L)."""
+        """k/v: (B, L, D) projected; query: (B, D) unprojected; mask (B, L).
+        The energies are in the compute dtype; the scaled softmax and the
+        mix with V are float32 (JAX's promotion of ``energy /
+        np.sqrt(D)``)."""
         D, H = self.embed_dim, self.num_heads
         B, L = k.shape[:2]
         q = self.queries(query).reshape(B, H, D // H)
         energy = torch.einsum("bhd,blhd->bhl", q, k.reshape(B, L, H, D // H))
         energy = energy.masked_fill(~mask[:, None, :], MASK_FILL)
-        attention = torch.softmax(energy / math.sqrt(D), dim=-1)
+        attention = torch.softmax(energy.float() / math.sqrt(D), dim=-1)
         out = torch.einsum("bhl,blhd->bhd", attention,
-                           v.reshape(B, L, H, D // H))
+                           v.reshape(B, L, H, D // H).float())
         return self.fc_out(out.reshape(B, D))
 
     def attend_with_op(self, query: torch.Tensor,
@@ -108,9 +150,11 @@ class GRUGate(nn.Module):
     """GRU gate that replaces a residual connection in GTrXL. Weights are kept
     (in, out), as in the JAX package."""
 
-    def __init__(self, dim: int, bias: float, device, generator):
+    def __init__(self, dim: int, bias: float, device, generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         D = dim
+        self.compute_dtype = dtype
         for name in ("Wr", "Wz", "Wg", "Ur", "Uz", "Ug"):
             weight = nn.Parameter(torch.empty(D, D, device=device))
             xavier_uniform_(weight, generator)
@@ -118,31 +162,36 @@ class GRUGate(nn.Module):
         self.bg = nn.Parameter(torch.full((D,), float(bias), device=device))
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        r = torch.sigmoid(y @ self.Wr + x @ self.Ur)
-        z = torch.sigmoid(y @ self.Wz + x @ self.Uz - self.bg)
-        h = torch.tanh(y @ self.Wg + (r * x) @ self.Ug)
+        dt = self.compute_dtype
+        Wr, Wz, Wg, Ur, Uz, Ug, bg = (p.to(dt) for p in (
+            self.Wr, self.Wz, self.Wg, self.Ur, self.Uz, self.Ug, self.bg))
+        x, y = x.to(dt), y.to(dt)
+        r = torch.sigmoid(y @ Wr + x @ Ur)
+        z = torch.sigmoid(y @ Wz + x @ Uz - bg)
+        h = torch.tanh(y @ Wg + (r * x) @ Ug)
         return (1.0 - z) * x + z * h
 
 
 class TransformerBlock(nn.Module):
     """One TrXL/GTrXL block with "pre", "post" or no LayerNorm."""
 
-    def __init__(self, config: TransformerConfig, device, generator):
+    def __init__(self, config: TransformerConfig, device, generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
         D = config.embed_dim
         self.attention = MultiHeadAttention(D, config.num_heads, device,
-                                            generator)
+                                            generator, dtype)
         ln = config.layer_norm
         if ln in ("pre", "post"):
-            self.norm1 = nn.LayerNorm(D, eps=1e-5, device=device)
-            self.norm2 = nn.LayerNorm(D, eps=1e-5, device=device)
+            self.norm1 = LayerNorm(D, device, dtype)
+            self.norm2 = LayerNorm(D, device, dtype)
         if ln == "pre":
-            self.norm_kv = nn.LayerNorm(D, eps=1e-5, device=device)
+            self.norm_kv = LayerNorm(D, device, dtype)
         if config.gtrxl:
-            self.gate1 = GRUGate(D, config.gtrxl_bias, device, generator)
-            self.gate2 = GRUGate(D, config.gtrxl_bias, device, generator)
-        self.fc = _linear(D, D, True, device, generator)
+            self.gate1 = GRUGate(D, config.gtrxl_bias, device, generator, dtype)
+            self.gate2 = GRUGate(D, config.gtrxl_bias, device, generator, dtype)
+        self.fc = _linear(D, D, True, device, generator, dtype=dtype)
 
     def project_kv(self, memory: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,15 +234,15 @@ class Transformer(nn.Module):
     """Episodic-memory transformer encoder with a length-1 query."""
 
     def __init__(self, config: TransformerConfig, max_episode_steps: int,
-                 device, generator):
+                 device, generator, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
         self.max_episode_steps = max_episode_steps
         D = config.embed_dim
         self.linear_embedding = _linear(D, D, True, device, generator,
-                                        gain=math.sqrt(2))
+                                        gain=math.sqrt(2), dtype=dtype)
         self.blocks = nn.ModuleList(
-            [TransformerBlock(config, device, generator)
+            [TransformerBlock(config, device, generator, dtype)
              for _ in range(config.num_blocks)])
         if config.positional_encoding == "relative":
             self.register_buffer("pos_table", torch.as_tensor(

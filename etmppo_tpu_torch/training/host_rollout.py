@@ -35,6 +35,11 @@ its gathers and scatters clamp or drop the indices past the memory; here the
 episode ends for the agent at ``max_episode_steps``, as a truncation (done,
 no info, as the pool reports a respawned worker's envs), since such an index
 is an error in PyTorch (a device-side assert on the card).
+
+``obs_uint8`` is refused here: the JAX package's host rollout stores the
+float observations unquantized while its update divides every minibatch's
+observations by 255, so such a run there trains on ``obs / 255``. The port
+does not carry that over.
 """
 from __future__ import annotations
 
@@ -113,6 +118,12 @@ class HostRolloutFn:
     def __init__(self, config: TrainConfig, env, model: ActorCriticModel,
                  generator: Optional[torch.Generator],
                  pipeline: bool = True):
+        if config.obs_uint8:
+            raise ValueError(
+                "obs_uint8 is not supported with a host env: the JAX "
+                "package's host rollout stores float observations that its "
+                "update then divides by 255, so the two packages would "
+                "train on different inputs")
         self.config = config
         self.env = env
         self.model = model

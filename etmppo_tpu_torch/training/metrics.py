@@ -1,7 +1,10 @@
 """Metrics (counterpart of ``etmppo_tpu/training/metrics.py``).
 
 The scalar groups keep the reference's names (``episode/*``, ``losses/*``,
-``training/*``, ``other/*``, ``gradients/*``); they go to a CSV file only.
+``training/*``, ``other/*``, ``gradients/*``). They go to a CSV file and,
+where ``torch.utils.tensorboard`` imports (it needs the ``tensorboard``
+package), to TensorBoard event files beside it, as the JAX package's writer
+does.
 """
 from __future__ import annotations
 
@@ -28,17 +31,31 @@ def process_episode_info(episode_info: List[dict]) -> Dict[str, float]:
 
 
 class MetricsWriter:
-    """Appends one CSV row per update under ``summary_dir/run_id/<time>/``."""
+    """Appends one CSV row per update under ``summary_dir/run_id/<time>/``
+    and, with ``use_tensorboard`` where TensorBoard imports, writes each
+    scalar to TensorBoard there too."""
 
-    def __init__(self, summary_dir: str, run_id: str):
+    def __init__(self, summary_dir: str, run_id: str,
+                 use_tensorboard: bool = True):
         timestamp = time.strftime("%Y%m%d-%H%M%S")
         self.log_dir = os.path.join(summary_dir, run_id, timestamp)
         os.makedirs(self.log_dir, exist_ok=True)
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                print(f"TensorBoard is off ({e}); metrics go to the CSV only")
+            else:
+                self._tb = SummaryWriter(self.log_dir)
         self.csv_path = os.path.join(self.log_dir, "metrics.csv")
         self._csv_file = open(self.csv_path, "w", newline="")
         self._csv: Optional[csv.DictWriter] = None
 
     def write(self, update: int, scalars: Dict[str, float]) -> None:
+        if self._tb is not None:
+            for key, value in scalars.items():
+                self._tb.add_scalar(key, value, update)
         row = {"update": update, **scalars}
         if self._csv is None:
             self._csv = csv.DictWriter(self._csv_file, fieldnames=list(row),
@@ -48,6 +65,8 @@ class MetricsWriter:
         self._csv_file.flush()
 
     def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
         self._csv_file.close()
 
 

@@ -27,6 +27,14 @@ one of two ways, as ``use_pallas_attention`` says:
 
 ``loss_window`` (JAX's ``_loss``) runs the model on the raw gathered windows;
 tests hold the other two against it.
+
+With ``compute_dtype: bfloat16`` the window-attention op stays float32, as
+the kernels are: ``loss_timeline`` casts q, the block's timeline K/V and its
+PE K/V to float32 at the op's boundary and the op's output back to the
+compute dtype (JAX's ``_loss_pallas``); autograd casts the gradients the
+other way. With ``obs_uint8`` the batch holds the observations quantized to
+uint8, and ``minibatch`` turns them back into ``obs / 255`` floats after the
+gather, for every loss path.
 """
 from __future__ import annotations
 
@@ -167,12 +175,14 @@ class PPOUpdate:
         pe = self.model.pe_kv_blocks()
 
         def make_op(i):
-            tk, tv = (t.contiguous() for t in kv[i])
-            pk, pv = (t.contiguous() for t in pe[i])
+            # The kernels are float32: cast at their boundary (the identity
+            # under float32).
+            tk, tv = (t.float().contiguous() for t in kv[i])
+            pk, pv = (t.float().contiguous() for t in pe[i])
             return lambda q: window_attention(
-                q, tk, tv, pk, pv, mb["w_idx"], mb["tl_start"],
+                q.float(), tk, tv, pk, pv, mb["w_idx"], mb["tl_start"],
                 mb["tl_n_valid"], mb["tl_s_lo"], mb["memory_mask"],
-                trx.num_heads, self.kernel, self.backward_kernel)
+                trx.num_heads, self.kernel, self.backward_kernel).to(q.dtype)
 
         logits, value, _ = self.model.forward_with_ops(
             mb["obs"], [make_op(i) for i in range(trx.num_blocks)])
@@ -262,6 +272,8 @@ class PPOUpdate:
 
     def minibatch(self, fields, idx: torch.Tensor):
         mb = {k: v[idx] for k, v in fields.items()}
+        if mb["obs"].dtype == torch.uint8:          # obs_uint8
+            mb["obs"] = mb["obs"].float() / 255.0
         mb["w_idx"] = (idx // self.config.worker_steps).to(torch.int32)
         return mb
 

@@ -11,6 +11,10 @@ item at ``(w, episode_step)`` -> sample actions -> env step (with its step
 draws) -> where done:
 reset the env, zero the worker's memory, reset its K/V caches to the
 PE-only projections and its episode step to 0.
+
+With ``obs_uint8`` the batch stores each observation as
+``quantize_obs(obs)``, a quarter of the bytes; the policy still sees the
+float observation, so the rollout itself is the float one's.
 """
 from __future__ import annotations
 
@@ -25,6 +29,12 @@ from ..models.kv_cache import KVCacheStep
 from ..ops import distributions
 from ..ops.gae import calc_advantages
 from ..ops.memory_index import build_memory_indices
+
+
+def quantize_obs(obs: torch.Tensor) -> torch.Tensor:
+    """``round(obs * 255)`` as uint8, saturated to [0, 255] as XLA's cast
+    is (PyTorch's float-to-uint8 cast wraps: -0.2 would become 205)."""
+    return torch.round(obs * 255.0).clamp(0, 255).to(torch.uint8)
 
 
 class RolloutState(NamedTuple):
@@ -112,7 +122,9 @@ class RolloutFn:
 
         n_br = len(self.env.action_branches)
         out = dict(
-            obs=torch.empty((W, T) + tuple(state.obs.shape[1:]), device=dev),
+            obs=torch.empty((W, T) + tuple(state.obs.shape[1:]), device=dev,
+                            dtype=torch.uint8 if cfg.obs_uint8
+                            else torch.float32),
             actions=torch.empty(W, T, n_br, dtype=torch.int64, device=dev),
             log_probs=torch.empty(W, T, n_br, device=dev),
             values=torch.empty(W, T, device=dev),
@@ -143,7 +155,7 @@ class RolloutFn:
             k_cache = torch.where(done4, pe_k, k_cache)
             v_cache = torch.where(done4, pe_v, v_cache)
 
-            out["obs"][:, t] = obs
+            out["obs"][:, t] = quantize_obs(obs) if cfg.obs_uint8 else obs
             out["actions"][:, t] = actions
             out["log_probs"][:, t] = log_probs
             out["values"][:, t] = value

@@ -16,6 +16,12 @@ the keyword ``grouped`` for the grouped pair), not a module global:
 gathered-window loss, as in the JAX package. Each update's rollout and PPO
 update are the spans ``rollout`` and ``ppo_update`` of a profiler trace
 (``utils/profiling.py``).
+
+``compute_dtype: bfloat16`` and ``obs_uint8`` train on either rollout,
+except ``obs_uint8`` with a host env, which ``HostRolloutFn`` refuses; only
+``num_devices > 1`` is not ported. Under ``utils/runtime.set_debug_nans``
+(``cli.py --debug-nans``) the model's modules and parameters are named in
+the checks' errors.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from ..config import TrainConfig
 from ..envs.factory import create_env
 from ..models.actor_critic import ActorCriticModel
 from ..utils.profiling import annotate
-from ..utils.runtime import resolve_device
+from ..utils.runtime import (debug_nans_enabled, name_modules, nan_errors,
+                             resolve_device)
 from . import metrics as metrics_lib
 from .checkpoint import Checkpointer, save_model
 from .host_rollout import HostRolloutFn, HostRolloutState
@@ -43,10 +50,6 @@ from .rollout import RolloutFn, RolloutState
 def _check_supported(config: TrainConfig) -> None:
     if config.num_devices != 1:
         raise NotImplementedError("only num_devices: 1 is ported")
-    if config.compute_dtype != "float32":
-        raise NotImplementedError("only compute_dtype: float32 is ported")
-    if config.obs_uint8:
-        raise NotImplementedError("obs_uint8 is not ported")
 
 
 class PPOTrainer:
@@ -70,14 +73,20 @@ class PPOTrainer:
             config, self.env.observation_shape, self.env.action_branches,
             self.max_episode_steps, device=self.device,
             generator=torch.Generator().manual_seed(config.seed))
+        if debug_nans_enabled():
+            name_modules(self.model)
         rollout_gen = torch.Generator(self.device).manual_seed(config.seed + 1)
         update_gen = torch.Generator(self.device).manual_seed(config.seed + 2)
         # Host envs (the C++ engine or the Python process pool) expose the
         # vectorized reset_all / step API instead of the batched protocol.
         self.is_host_env = hasattr(self.env, "reset_all")
         if self.is_host_env:
-            self.rollout_fn = HostRolloutFn(config, self.env, self.model,
-                                            rollout_gen)
+            try:
+                self.rollout_fn = HostRolloutFn(config, self.env, self.model,
+                                                rollout_gen)
+            except ValueError:          # obs_uint8
+                self.env.close()
+                raise
         else:
             self.rollout_fn = RolloutFn(config, self.env, self.model,
                                         rollout_gen)
@@ -110,7 +119,7 @@ class PPOTrainer:
 
         with annotate("rollout"):
             self.rollout_state, batch = self.rollout_fn(self.rollout_state)
-        with annotate("ppo_update"):
+        with annotate("ppo_update"), nan_errors():
             stats, grad_info = self.update_fn(batch, lr, clip_range, beta)
 
         self.episode_infos.extend(self._extract_episode_infos(

@@ -3,7 +3,9 @@
 * ``trace(log_dir)``: a ``torch.profiler`` trace of host and CUDA activity
   (the CUDA activity where this PyTorch build has it) around the block,
   written into ``log_dir`` as a Chrome trace JSON (``trace.json``), which
-  chrome://tracing and Perfetto open. Yields the profiler.
+  chrome://tracing and Perfetto open. Yields the profiler; with
+  ``record_shapes`` its ``key_averages(group_by_input_shape=True)`` tells
+  an operator's calls apart by their input shapes.
 * ``annotate(name)``: a named span in that trace (``record_function``).
 * ``device_busy(path, spans)``: from such a trace, the wall time of
   consecutive host spans and the share of it in which the device ran a
@@ -27,12 +29,13 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 @contextlib.contextmanager
-def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+def trace(log_dir: str, record_shapes: bool = False
+          ) -> Iterator[torch.profiler.profile]:
     from torch.profiler import ProfilerActivity, profile, supported_activities
     activities = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA)
                   if a in supported_activities()]
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=record_shapes) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 

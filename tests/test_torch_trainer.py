@@ -16,7 +16,8 @@ import yaml
 
 from etmppo_tpu.config import load_config as jax_load_config
 from etmppo_tpu_torch import cli
-from etmppo_tpu_torch.config import (CARTPOLE_MASKED, MINIGRID_FLAGSHIP,
+from etmppo_tpu_torch.config import (CARTPOLE_MASKED, HEADROOM_768,
+                                     MINIGRID_FLAGSHIP,
                                      MORTAR_MAYHEM_GRID, MYSTERY_PATH_GRID,
                                      POC_MEMORY, SEARING_SPOTLIGHTS,
                                      SEARING_SPOTLIGHTS_BETA,
@@ -57,6 +58,7 @@ def _tiny(tmp_path, **overrides):
      "etmppo_tpu/configs/searing_spotlights_beta.yaml", True),
     (SEARING_SPOTLIGHTS_SHAPED,
      "etmppo_tpu/configs/searing_spotlights_shaped.yaml", True),
+    (HEADROOM_768, "etmppo_tpu/configs/headroom_768.yaml", True),
 ])
 def test_flagship_dicts_are_exactly_their_yaml(raw, path, kernels):
     """``kernels``: the config runs the window-attention kernel pair (else
@@ -121,12 +123,26 @@ def test_trainer_is_deterministic_given_the_seed(tmp_path):
     (dict(environment={"type": "CartPole-native"}), "CartPole-native"),
 ])
 def test_trainer_refuses_unported_options(tmp_path, overrides, match):
-    """The options still refused raise. A ``-native`` env type, refused
-    until the host path was ported, now trains through the host rollout."""
+    """Only ``num_devices > 1`` is still refused. ``compute_dtype:
+    bfloat16`` (parameters stay float32) and ``obs_uint8`` (the batch holds
+    uint8 obs), refused until they were ported, now train, as a ``-native``
+    env type trains through the host rollout."""
     cfg = config_from_dict(_tiny(tmp_path, **overrides))
-    if not cfg.environment.type.endswith("-native"):
+    if cfg.num_devices != 1:
         with pytest.raises(NotImplementedError, match=match):
             PPOTrainer(cfg, device="cpu", enable_metrics=False)
+        return
+    if not cfg.environment.type.endswith("-native"):
+        trainer = PPOTrainer(cfg, device="cpu", enable_metrics=False)
+        _, batch = trainer.rollout_fn(trainer.rollout_state)
+        result = trainer.train_one_update()
+        assert all(math.isfinite(v) for v in result.values())
+        if match == "float32":
+            assert trainer.model.compute_dtype == torch.bfloat16
+            assert {p.dtype for p in trainer.model.parameters()} == {
+                torch.float32}
+        else:
+            assert batch.obs.dtype == torch.uint8 and cfg.obs_uint8
         return
     from etmppo_tpu_torch.envs.native import NativeEnvBatch
     from etmppo_tpu_torch.training.host_rollout import HostRolloutFn
@@ -283,10 +299,16 @@ def test_importing_the_port_loads_no_jax():
             "etmppo_tpu_torch.utils.render, etmppo_tpu_torch.utils.flops, "
             "etmppo_tpu_torch.utils.runtime, etmppo_tpu_torch.envs.native, "
             "etmppo_tpu_torch.envs.host, etmppo_tpu_torch.envs.factory, "
-            "etmppo_tpu_torch.training.host_rollout; "
+            "etmppo_tpu_torch.training.host_rollout, "
+            "etmppo_tpu_torch.training.metrics, "
+            "etmppo_tpu_torch.training.rollout, "
+            "etmppo_tpu_torch.training.ppo, "
+            "etmppo_tpu_torch.models.actor_critic, "
+            "etmppo_tpu_torch.models.transformer, "
+            "etmppo_tpu_torch.config; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'msgpack', 'optax', 'yaml', 'etmppo_tpu', "
-            "'PIL')]; "
+            "'PIL', 'tensorboard', 'tensorflow')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
