@@ -193,6 +193,38 @@ Phases, each printing one line with its seconds:
                 printed; then a NaN learning rate must raise
                 FloatingPointError within its first update, and no check
                 may outlive the phase.
+19. data-parallel: the MiniGrid flagship at full width (16 x 512, TrXL 3 x
+                384, 5 epochs x 8 minibatches) on two ranks that share the
+                card, spawned with gloo named (parallel/mesh.spawn; NCCL
+                refuses two ranks on one card), 8 workers each, two updates;
+                beside it a one-device trainer of the same seed in this
+                process. Each rank must launch B1 and B2 120 times an update
+                on its part of each minibatch, the ranks' parameters must be
+                bit-identical after each update, and update 1 must agree
+                with the one-device run. Its ranks take the one-device run's
+                actions (parallel/probe.Replay), so its batch is one
+                device's by construction; the actions each rank draws itself
+                (as an unreplayed rank would) must equal one device's except
+                at near ties (a Gumbel-max margin under DP_TIE_ATOL), the
+                values within DP_VALUE_RTOL; the first minibatch's clipped
+                gradients within GRAD_RTOL of the largest, and after the
+                update the stats within DP_STATS_TOL and the parameters
+                within 2 lr a step. Before the ranks,
+                data-parallel-known-wrong reads those limits for the
+                data-parallel update and two known-wrong ones (local
+                advantage statistics; no all-reduce), emulated on one
+                device: the first must hold the gradient and parameter
+                limits (its stats are read), each wrong one break one.
+                Rank 0's .nn must reload to its parameters. Prints each
+                rank's rollout and PPO update seconds and the ms and bytes
+                of its per-minibatch all-reduce and per-update gathers
+                beside the one-device run's seconds (two ranks sharing one
+                card is not a scaling number). Then one Mortar Mayhem Grid
+                update with the grouped pair on the same ranks (72 launches
+                of B3 and B4 each a rank, bit-identical). Where the call has
+                two or more cards, the flagship at N = 1, 2 and 4 with NCCL,
+                a rank a card, 3 updates each: steady env-steps/s (updates
+                2-3).
 No window-attention kernel may launch in phases 10-14. The flagship phase
 (4) also prints flagship-mfu: the FLOPs of a PPO update (counted_flops of
 one minibatch's forward and backward, plus window_attention_flops for the
@@ -2235,6 +2267,413 @@ def run_debug_nans(device, k) -> list:
     return launches
 
 
+# --- phase 19: data parallelism ---------------------------------------------
+
+DP_RANKS = 2                   # gloo ranks sharing the card
+DP_UPDATES = 2
+# The ranks take the one-device run's actions in update 1 (``probe.Replay``),
+# so update 1's batch is one device's by construction and its check always
+# holds. A rank computes its W/N rows where one device computes W: cuBLAS
+# and cuDNN may pick other kernels for the other shapes, so the values
+# differ in the last bits, which the memory carries through the rollout. The
+# action a rank draws itself (it draws them all the same) may then differ
+# from one device's only at a near tie: a Gumbel-max margin (the gap
+# between the two largest perturbed logits) under DP_TIE_ATOL in either run.
+DP_TIE_ATOL = 1e-4
+DP_VALUE_RTOL = 1e-4           # of max(1, |value|)
+# The first minibatch's clipped gradients, before any AdamW step: within
+# GRAD_RTOL of the largest. After the update's 40 steps, AdamW has turned
+# noise-level gradient signs into steps of about the learning rate (B2's
+# and cuDNN's atomics make even two one-device updates differ, ROADMAP §C):
+# every parameter within 2 lr a step; the stats, relative and absolute,
+# the losses and the entropy as tests/test_torch_training.py's full update
+# holds them (policy_loss, a mean near 0, by the absolute term), kl and the
+# clip fraction (means of functions of the probability ratio, which move
+# most with the parameters' last bits) to 5%. PERF.md gives the readings of
+# sound runs and of two known-wrong updates (``dp_known_wrong``) beside
+# these limits.
+DP_STATS_TOL = {"policy_loss": (1e-3, 1e-4), "value_loss": (1e-3, 1e-4),
+                "loss": (1e-3, 1e-4), "entropy": (1e-3, 1e-4),
+                "kl": (5e-2, 1e-4), "clip_fraction": (5e-2, 1e-4)}
+DP_SCALING_UPDATES = 3         # N = 1, 2, 4 on their own cards: updates 2-3 timed
+
+
+def check_counts(counts: dict, expected: dict, label: str) -> None:
+    """A rank's launches of each kernel in one update (``probe.train``'s
+    ``launches``) against ``expected`` (name -> launches; every other
+    kernel never)."""
+    for name in NAMES:
+        if counts[name] != expected.get(name, 0):
+            raise RuntimeError(f"{label}: {name} launched {counts[name]} "
+                               f"times, expected {expected.get(name, 0)}")
+
+
+def hold_ranks_replicated(ranks, label: str) -> None:
+    """The ranks' parameters bit-identical after every update: their digests
+    and, where kept, the parameters."""
+    for r in ranks[1:]:
+        for u, digest in enumerate(ranks[0]["digests"]):
+            if not torch.equal(r["digests"][u], digest):
+                raise RuntimeError(f"{label}: rank {r['rank']}'s parameters "
+                                   f"differ from rank 0's after update {u}")
+        for u, params in enumerate(ranks[0]["params"]):
+            _assert_same(params, r["params"][u], f"{label} update {u}")
+
+
+def hold_rows(ranks, one, n_workers: int, T: int) -> str:
+    """Each rank's rows of update 1's rollout against the one-device run's:
+    the actions it took are one device's (replayed); the actions it drew
+    itself equal one device's except at near ties (a margin under
+    DP_TIE_ATOL in either run); the values within DP_VALUE_RTOL. Returns
+    the detail."""
+    per = n_workers // len(ranks)
+    ties, worst = [], 0.0
+    for r in ranks:
+        rows = slice(r["rank"] * per, (r["rank"] + 1) * per)
+        b, o = r["batch"], {k: v[rows] for k, v in one["batch"].items()}
+        if not torch.equal(b["actions"], o["actions"]):
+            raise RuntimeError(f"data-parallel: rank {r['rank']} did not "
+                               "take the one-device run's actions")
+        differ = (b["sampled"] != o["actions"]).reshape(per, T, -1).any(-1)
+        for w, t in differ.nonzero().tolist():
+            margin = min(float(b["margins"][w, t]), float(o["margins"][w, t]))
+            if margin > DP_TIE_ATOL:
+                raise RuntimeError(
+                    f"data-parallel: worker {rows.start + w}'s action at "
+                    f"step {t} differs from one device's, clear of a tie "
+                    f"(margin {margin:.3e})")
+            ties.append((rows.start + w, t, margin))
+        scale = o["values"].abs().amax(dim=1).clamp(min=1.0)
+        err = float(((b["values"] - o["values"]).abs().amax(dim=1)
+                     / scale).max())
+        if err > DP_VALUE_RTOL:
+            raise RuntimeError(f"data-parallel: rank {r['rank']}'s values "
+                               f"differ from one device's by {err:.3e} of "
+                               "max(1, |v|)")
+        worst = max(worst, err)
+    return (f"rollout rows (one device's actions taken): the ranks' own "
+            f"draws equal one device's in {n_workers * T - len(ties)} of "
+            f"{n_workers * T} worker-steps, the rest near ties"
+            + (" (" + ", ".join(f"w{w} t{t} margin {m:.1e}"
+                                for w, t, m in ties[:8]) + ")" if ties else "")
+            + f"; values within {worst:.2e} of max(1, |v|)")
+
+
+def read_limits(got: dict, want: dict, config) -> tuple:
+    """Update 1's limits read for ``got`` against ``want`` (each a dict of
+    ``stats`` (name -> float), ``first_grads`` and ``params`` (name ->
+    tensor)). Returns (what is out of its limit, detail)."""
+    bad, stats = [], []
+    for key, (rtol, atol) in DP_STATS_TOL.items():
+        g, w = got["stats"][key], want["stats"][key]
+        limit = rtol * abs(w) + atol
+        stats.append(f"{key} {g:.6g} / {w:.6g} ({abs(g - w) / limit:.2g} "
+                     "of its limit)")
+        if not abs(g - w) <= limit:
+            bad.append(f"{key} (tol {rtol:g} relative + {atol:g})")
+    grad_err = max(float((got["first_grads"][n] - g).abs().max())
+                   for n, g in want["first_grads"].items())
+    grad_max = max(float(g.abs().max())
+                   for g in want["first_grads"].values())
+    if not grad_err <= GRAD_RTOL * grad_max:
+        bad.append(f"the first minibatch's gradients (tol {GRAD_RTOL:g} of "
+                   "the largest)")
+    diffs = torch.cat([(got["params"][n] - p).abs().reshape(-1)
+                       for n, p in want["params"].items()])
+    steps = config.epochs * config.n_mini_batch
+    lr = config.learning_rate_schedule.value(0)
+    q99 = float(diffs.sort().values[int(0.99 * (diffs.numel() - 1))])
+    if float(diffs.max()) > 2 * lr * steps:
+        bad.append(f"the largest parameter difference (tol 2 lr x {steps} "
+                   f"= {2 * lr * steps:.2e})")
+    return bad, (f"first minibatch's gradients within {grad_err:.2e} of the "
+                 f"largest {grad_max:.2e} ({grad_err / grad_max:.2e}, limit "
+                 f"{GRAD_RTOL:g}); " + ", ".join(stats) + f"; parameters max "
+                 f"{float(diffs.max()):.2e} (limit 2 lr x {steps} = "
+                 f"{2 * lr * steps:.2e}), 99% within {q99:.2e}")
+
+
+def update_one(r) -> dict:
+    """A ``probe.train`` result's update 1, for ``read_limits``."""
+    return dict(stats=r["results"][0], first_grads=r["first_grads"],
+                params=r["params"][0])
+
+
+def dp_known_wrong(config, device) -> str:
+    """Update 1's limits read for the data-parallel update and for two
+    known-wrong ones, each emulated here on one device from the same
+    parameters, batch and permutations, against the one-device update:
+    ``sound`` sums DP_RANKS ranks' parts of every minibatch, each with the
+    global minibatch's advantage statistics and count (what the ranks
+    compute); ``local statistics`` takes each rank's part as a minibatch of
+    its own and averages over the ranks (a per-shard approximation); ``no
+    all-reduce`` steps on rank 0's part alone. Fails unless the sound one
+    holds the gradient and parameter limits (its stats are read, not held:
+    B2's and cuDNN's atomics move the one-device update's clip fraction by
+    up to 3.8%, 0.75 of its limit) and each wrong one breaks a limit.
+    Returns the detail."""
+    from etmppo_tpu_torch.training.ppo import STAT_NAMES, clip_grads_torch
+    from etmppo_tpu_torch.training.trainer import PPOTrainer
+    cfg = dataclasses.replace(config, num_devices=1)
+    trainer = PPOTrainer(cfg, run_id="dpwrong", device=device,
+                         enable_metrics=False)
+    try:
+        upd, model = trainer.update_fn, trainer.model
+        _, batch = trainer.rollout_fn(trainer.rollout_state)
+        lr, clip, beta = (s.value(0) for s in (cfg.learning_rate_schedule,
+                                                cfg.clip_range_schedule,
+                                                cfg.beta_schedule))
+        perms = torch.stack([
+            torch.randperm(cfg.batch_size, generator=upd.generator,
+                           device=device) for _ in range(cfg.epochs)])
+        start = copy.deepcopy((model.state_dict(),
+                               upd.optimizer.state_dict()))
+        memory, slots, fields = upd.prepare(batch)
+        per_rank = cfg.n_workers // DP_RANKS * cfg.worker_steps
+
+        def emulated(variant):
+            ranks = range(1 if variant == "no all-reduce" else DP_RANKS)
+            for group in upd.optimizer.param_groups:
+                group["lr"] = lr
+            mbs = perms.reshape(cfg.epochs * cfg.n_mini_batch, -1)
+            stats = torch.zeros(len(STAT_NAMES), device=device)
+            for idx in mbs:
+                upd.optimizer.zero_grad(set_to_none=True)
+                for r in ranks:
+                    part = idx[idx // per_rank == r]
+                    if variant == "local statistics":
+                        mb, scale = upd.minibatch(fields, part), 1 / DP_RANKS
+                    else:
+                        mb = upd.minibatch(fields, part,
+                                           fields["advantages"][idx])
+                        scale = 1.0
+                    loss, s = upd.loss(mb, memory, slots, clip, beta)
+                    (loss * scale).backward()
+                    stats += s * scale
+                clip_grads_torch(model, cfg.max_grad_norm)
+                upd.optimizer.step()
+            return stats / len(mbs)
+
+        def update(variant) -> dict:
+            model.load_state_dict(start[0])
+            upd.optimizer.load_state_dict(start[1])
+            grads: list = []
+
+            def keep(optimizer, args, kwargs):
+                grads.append({n: p.grad.detach().cpu().clone()
+                              for n, p in model.named_parameters()})
+                hook.remove()
+            hook = upd.optimizer.register_step_pre_hook(keep)
+            stats = (upd(batch, lr, clip, beta, perms=perms)[0]
+                     if variant == "one device" else emulated(variant))
+            return dict(stats=dict(zip(STAT_NAMES, stats.tolist())),
+                        first_grads=grads[0],
+                        params={n: p.detach().cpu().clone()
+                                for n, p in model.named_parameters()})
+        want = update("one device")
+        details = []
+        for variant in ("sound", "local statistics", "no all-reduce"):
+            bad, detail = read_limits(update(variant), want, cfg)
+            details.append(f"{variant}: {detail}")
+            if variant == "sound":
+                # Its stats are one more draw of the atomics' noise, which
+                # the ranks' own check below already holds: read, not held.
+                bad = [b for b in bad if b.split()[0] not in DP_STATS_TOL]
+            if (variant == "sound") != (not bad):
+                raise RuntimeError(
+                    f"data-parallel known-wrong: the {variant} update "
+                    + (f"breaks {', '.join(bad)}" if bad
+                       else "holds every limit"))
+        return "; ".join(details)
+    finally:
+        trainer.close()
+
+
+def traffic_line(r) -> str:
+    """A rank's seconds and collectives (a collective's seconds include the
+    wait for the slower rank)."""
+    tr, sec = r["traffic"], r["seconds"]
+    per_mb = tr["gradients"]
+    n_up = len(sec["ppo_update"])
+    gathers = [name for name in ("advantages", "episode rows",
+                                 "replica check") if name in tr]
+    return (f"rank {r['rank']}: rollout s " + " ".join(
+        f"{s:.2f}" for s in sec["rollout"]) + ", ppo update s " + " ".join(
+        f"{s:.2f}" for s in sec["ppo_update"])
+        + f"; all-reduce {per_mb['calls']} x "
+        f"{per_mb['bytes'] / per_mb['calls'] / 1e6:.3f} MB, "
+        f"{per_mb['seconds'] / per_mb['calls'] * 1e3:.3f} ms each; gathers "
+        "per update " + ", ".join(
+            f"{g} {tr[g]['bytes'] / n_up / 1e3:.1f} kB "
+            f"{tr[g]['seconds'] / n_up * 1e3:.3f} ms" for g in gathers))
+
+
+def run_data_parallel(device, k) -> list:
+    """Phase 19: the MiniGrid flagship at full width on DP_RANKS gloo ranks
+    sharing the card (8 workers each), DP_UPDATES updates, against a
+    one-device trainer of the same seed run here; then a Mortar Mayhem
+    Grid update with the grouped pair on the same ranks; with two or more
+    cards, NCCL with a rank a card at N = 2 and 4 (scaling). Returns the
+    ranks' launches summed, in the order of NAMES."""
+    from etmppo_tpu_torch.config import (MINIGRID_FLAGSHIP, MORTAR_MAYHEM_GRID,
+                                         config_from_dict)
+    from etmppo_tpu_torch.parallel import probe
+    from etmppo_tpu_torch.parallel.mesh import spawn
+    from etmppo_tpu_torch.training.checkpoint import load_model
+    t = time.perf_counter()
+    backend = "gloo"
+    print(f"data-parallel: {DP_RANKS} ranks on {device} with {backend} named "
+          "(NCCL refuses two ranks on one card); spawned, each loading the "
+          "kernels built above", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        flagship = dataclasses.replace(
+            config_from_dict(MINIGRID_FLAGSHIP), updates=DP_UPDATES,
+            num_devices=DP_RANKS, summary_dir=tmp, checkpoint_dir=tmp)
+        mortar = dataclasses.replace(
+            config_from_dict(MORTAR_MAYHEM_GRID), updates=1,
+            num_devices=DP_RANKS, summary_dir=tmp, checkpoint_dir=tmp)
+        W, T = flagship.n_workers, flagship.worker_steps
+        fields = ("actions", "values")
+        one = probe.train(None, dataclasses.replace(flagship, num_devices=1),
+                          "one", updates=DP_UPDATES, batch_fields=fields,
+                          device=device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        phase("data-parallel-one-device", t, "one device: rollout s "
+              + " ".join(f"{s:.2f}" for s in one["seconds"]["rollout"])
+              + ", ppo update s " + " ".join(
+                  f"{s:.2f}" for s in one["seconds"]["ppo_update"]))
+        t = time.perf_counter()
+        wrong = dp_known_wrong(flagship, device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        phase("data-parallel-known-wrong", t, "update 1's limits read, "
+              "emulated on one device against the one-device update: "
+              + wrong)
+        t = time.perf_counter()
+        # Update 1 takes the one-device run's actions; the ranks draw their
+        # own all the same, and hold_rows holds those to one device's.
+        replay = probe.Replay(reset=None, actions=one["batch"]["actions"],
+                              perms=None)
+        runs = [(flagship, dict(run_id="dp", updates=DP_UPDATES,
+                                batch_fields=fields, timed_collectives=True,
+                                save_model=True, device=device,
+                                replay=replay)),
+                (mortar, dict(run_id="dpmmg", grouped=True, updates=1,
+                              keep_params=False, device=device))]
+        ranks = spawn(probe.train_runs, DP_RANKS, (runs,), device=device,
+                      backend=backend, timeout=600, collective_timeout=300)
+        spawned_s = time.perf_counter() - t
+        dp = [r[0] for r in ranks]
+        mmg = [r[1] for r in ranks]
+        for r in dp:
+            print("data-parallel " + traffic_line(r) + "; one device: "
+                  "rollout s " + " ".join(
+                      f"{s:.2f}" for s in one["seconds"]["rollout"])
+                  + ", ppo update s " + " ".join(
+                      f"{s:.2f}" for s in one["seconds"]["ppo_update"])
+                  + " (two ranks share one card: not a scaling number)",
+                  flush=True)
+        for r in mmg:
+            print("data-parallel mortarmayhem " + traffic_line(r), flush=True)
+        for r in dp:
+            for u, counts in enumerate(r["launches"]):
+                check_counts(counts, {n: FLAGSHIP_LAUNCHES for n in NAMES[:2]},
+                             f"data-parallel rank {r['rank']} update {u}")
+            bad = {key: v for res in r["results"] for key, v in res.items()
+                   if not math.isfinite(v)}
+            if bad:
+                raise RuntimeError(f"data-parallel rank {r['rank']}: "
+                                   f"non-finite {bad}")
+        for r in mmg:
+            check_counts(r["launches"][0], {n: MORTAR_LAUNCHES
+                                            for n in NAMES[2:]},
+                         f"data-parallel mortarmayhem rank {r['rank']}")
+        hold_ranks_replicated(dp, "data-parallel")
+        hold_ranks_replicated(mmg, "data-parallel mortarmayhem")
+        rows_detail = hold_rows(dp, one, W, T)
+        bad, update_detail = read_limits(update_one(dp[0]), update_one(one),
+                                         flagship)
+        print(f"data-parallel check: {rows_detail}; update 1, ranks / one "
+              f"device: {update_detail}", flush=True)
+        if bad:
+            raise RuntimeError("data-parallel: update 1 differs from one "
+                               "device's in " + ", ".join(bad))
+        model, _ = load_model(os.path.join(tmp, "dp.nn"), device)
+        _assert_same({n: p.detach().cpu() for n, p in
+                      model.named_parameters()}, dp[0]["params"][-1],
+                     "data-parallel dp.nn")
+        phase("data-parallel", t,
+              f"MiniGrid flagship {W} x {T} on {DP_RANKS} ranks of "
+              f"{W // DP_RANKS} workers, {DP_UPDATES} updates: launches per "
+              "rank per update " + ", ".join(
+                  f"fwd {c[NAMES[0]]} bwd {c[NAMES[1]]}"
+                  for r in dp for c in r["launches"])
+              + "; parameters bit-identical across ranks after each update; "
+              f"{rows_detail}; update 1 within tolerance of one device's; "
+              "dp.nn (rank 0) "
+              "reloads to rank 0's parameters; Mortar Mayhem Grid 1 update "
+              "grouped: " + ", ".join(
+                  f"rank {r['rank']} fwd_grouped {r['launches'][0][NAMES[2]]}"
+                  f" bwd_grouped {r['launches'][0][NAMES[3]]}" for r in mmg)
+              + f", bit-identical; {spawned_s:.1f} s for the spawned ranks")
+    launches = [sum(u[name] for r in dp + mmg for u in r["launches"])
+                for name in NAMES]
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() >= 2:
+        run_dp_scaling(device)
+    else:
+        print("data-parallel scaling: one card visible; NCCL at N = 2 and 4 "
+              "runs only where a call has two or more cards", flush=True)
+    return launches
+
+
+def run_dp_scaling(device, cards: int = 0) -> None:
+    """With two or more cards: the flagship at N = 1 (here), 2 and 4 (NCCL,
+    a rank a card, where there are that many), DP_SCALING_UPDATES updates
+    each; prints the steady env-steps/s (updates 2 onward). On the CPU
+    (a rehearsal) the ranks are gloo processes, ``cards`` of them at
+    most."""
+    from etmppo_tpu_torch.config import MINIGRID_FLAGSHIP, config_from_dict
+    from etmppo_tpu_torch.parallel import probe
+    from etmppo_tpu_torch.parallel.mesh import spawn
+    cuda = torch.device(device).type == "cuda"
+    cards = torch.cuda.device_count() if cuda else cards
+    with tempfile.TemporaryDirectory() as tmp:
+        base = dataclasses.replace(
+            config_from_dict(MINIGRID_FLAGSHIP), updates=DP_SCALING_UPDATES,
+            summary_dir=tmp, checkpoint_dir=tmp)
+        steps = base.n_workers * base.worker_steps
+        for n in (1, 2, 4):
+            if n > cards:
+                continue
+            t = time.perf_counter()
+            cfg = dataclasses.replace(base, num_devices=n)
+            kwargs = dict(run_id=f"scale{n}", updates=DP_SCALING_UPDATES,
+                          keep_params=False, device=device)
+            ranks = ([probe.train(None, cfg, **kwargs)] if n == 1 else
+                     spawn(probe.train, n, (cfg,), kwargs=kwargs,
+                           device="cuda" if cuda else "cpu", timeout=900,
+                           collective_timeout=300))
+            hold_ranks_replicated(ranks, f"scaling N={n}")
+            for r in ranks:
+                for u, counts in enumerate(r["launches"]):
+                    check_counts(counts, {nm: FLAGSHIP_LAUNCHES
+                                          for nm in NAMES[:2]},
+                                 f"scaling N={n} rank {r['rank']} update {u}")
+            per_update = [max(r["seconds"]["rollout"][u]
+                              + r["seconds"]["ppo_update"][u] for r in ranks)
+                          for u in range(DP_SCALING_UPDATES)]
+            steady = steps * (DP_SCALING_UPDATES - 1) / sum(per_update[1:])
+            backend = "nccl" if cuda else "gloo"
+            detail = f"N={n} ({backend if n > 1 else 'one device'}): " + (
+                "s/update " + " ".join(f"{s:.2f}" for s in per_update)
+                + f"; steady env-steps/s {steady:.0f} (updates 2-"
+                f"{DP_SCALING_UPDATES})")
+            if n > 1:
+                detail += "; " + "; ".join(traffic_line(r) for r in ranks)
+            phase("data-parallel-scaling", t, detail)
+
+
 def update_mfu(trainer, batch, update_s: float) -> str:
     """The FLOPs of one PPO update of ``trainer`` (``counted_flops`` of one
     minibatch's forward and backward through the kernel pair, plus
@@ -2360,6 +2799,8 @@ def main() -> int:
     launches["obs_uint8"] = run_obs_uint8(device, k)
     torch.cuda.empty_cache()
     launches["debug_nans"] = run_debug_nans(device, k)
+    torch.cuda.empty_cache()
+    launches["data_parallel"] = run_data_parallel(device, k)
     check_float32("before the result line")
 
     entries = []

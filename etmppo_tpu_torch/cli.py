@@ -20,6 +20,17 @@ trains seeds ``seed .. seed + N - 1`` one after another as
 ``FloatingPointError`` at the first NaN or infinity of a forward output, a
 backward function or a parameter after an optimizer step
 (``utils/runtime.set_debug_nans``), and turns the checks off at the end.
+
+Data parallelism: with ``num_devices: N > 1`` in the config the CLI spawns
+N ranks itself (``parallel.mesh.spawn``: nccl, a card a rank; gloo on the
+CPU with ``--cpu``) and trains each seed on all of them; under torchrun
+(``WORLD_SIZE`` set) this process is one rank
+(``parallel.multihost.initialize_multihost``):
+
+    torchrun --nproc_per_node=N -m etmppo_tpu_torch.cli --config=x.json
+
+Only rank 0 writes the summaries, the checkpoints and the model and prints;
+``--profile`` traces rank 0.
 """
 from __future__ import annotations
 
@@ -64,22 +75,48 @@ def train_main(argv=None):
                         help="Raise FloatingPointError at the first NaN or "
                              "infinity (checks that sync with the device)")
     args = parser.parse_args(argv)
+    device = "cpu" if args.cpu else "cuda"
+    if "WORLD_SIZE" in os.environ:         # torchrun: this process is a rank
+        import torch.distributed as dist
+
+        from .parallel.mesh import make_mesh
+        from .parallel.multihost import initialize_multihost
+        initialize_multihost(backend="gloo" if args.cpu else None)
+        try:
+            mesh = make_mesh(_read_config(args.config).num_devices, device)
+            return train_rank(mesh, args)
+        finally:
+            dist.destroy_process_group()
+    num_devices = _read_config(args.config).num_devices
+    if num_devices > 1:
+        from .parallel.mesh import spawn
+        # No deadline on the whole run, which may take days; a hung rank
+        # fails the others' collectives (``collective_timeout``).
+        return spawn(train_rank, num_devices, (args,), device=device,
+                     timeout=None)[0]
+    return train_rank(None, args)
+
+
+def train_rank(mesh, args):
+    """One rank's training (all of it on one device, ``mesh`` None):
+    returns the last seed's training result."""
     if not args.debug_nans:
-        return _train_seeds(args)
+        return _train_seeds(args, mesh)
     from .utils.runtime import set_debug_nans
     set_debug_nans(True)
     try:
-        return _train_seeds(args)
+        return _train_seeds(args, mesh)
     finally:
         set_debug_nans(False)
 
 
-def _train_seeds(args):
+def _train_seeds(args, mesh=None):
     """Trains ``args.seeds`` seeds one after another; returns the last
     seed's training result."""
     from .training.trainer import PPOTrainer
     from .utils.profiling import trace
 
+    primary = mesh is None or mesh.is_primary
     base = _read_config(args.config)
     if args.updates is not None:
         base = dataclasses.replace(base, updates=args.updates)
@@ -90,23 +127,26 @@ def _train_seeds(args):
         run_id = (args.run_id if args.seeds == 1
                   else f"{args.run_id}_s{config.seed}")
         trainer = PPOTrainer(config, run_id=run_id,
-                             device="cpu" if args.cpu else "cuda")
+                             device="cpu" if args.cpu else "cuda", mesh=mesh)
         if args.resume:
             resumed = trainer.resume_from_checkpoint()
-            print(f"Resumed from checkpoint at update {trainer.update}"
-                  if resumed else "No checkpoint found; starting fresh")
+            if primary:
+                print(f"Resumed from checkpoint at update {trainer.update}"
+                      if resumed else "No checkpoint found; starting fresh")
         try:
-            with (trace(os.path.join(args.profile, run_id)) if args.profile
-                  else contextlib.nullcontext()):
+            with (trace(os.path.join(args.profile, run_id))
+                  if args.profile and primary else contextlib.nullcontext()):
                 result = trainer.run_training()
         finally:
             trainer.close()
+        results.append(result)
+        if not primary:
+            continue
         print(f"env steps/s: {result['env_steps_per_second']:,.0f}")
         if "env_steps_per_second_steady" in result:
             print(f"env steps/s (steady, without the first update): "
                   f"{result['env_steps_per_second_steady']:,.0f}")
-        results.append(result)
-    if len(results) > 1:
+    if len(results) > 1 and primary:
         import numpy as np
         rewards = [r.get("reward_mean", float("nan")) for r in results]
         print(f"[{len(results)} seeds] final reward_mean: "

@@ -55,7 +55,7 @@ class CartPole(TorchEnv):
 
     def sample_reset_draws(self, generator: torch.Generator) -> torch.Tensor:
         """(W, 4) uniform in [-0.05, 0.05): the initial physics."""
-        u = torch.rand(self.n_workers, 4, generator=generator,
+        u = torch.rand(self.draw_width, 4, generator=generator,
                        device=self.device)
         return u * 0.1 - 0.05
 

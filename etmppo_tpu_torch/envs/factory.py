@@ -7,10 +7,17 @@ vectorized ``reset_all`` / ``step`` API and take their worker count at
 ``start``: the ``-native`` types in the C++ engine (``envs/native.py``),
 and ``HOST_ENV_TYPES`` (the original Python packages, memory-gym and
 gym-minigrid, where installed) in the process pool (``envs/host.py``).
+
+Under data parallelism a rank builds its ``n_workers`` of the run's
+``draw_workers``, starting at worker ``first_worker``: an on-device env
+draws for all ``draw_workers`` (``TorchEnv.draw_width``); the C++ engine
+takes the seed that makes its envs the single engine's envs from
+``first_worker`` on (``native_seed``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from ..config import EnvConfig
 from .core import TorchEnv
@@ -26,7 +33,28 @@ HOST_ENV_TYPES = (
 )
 
 
-def create_env(config: EnvConfig, n_workers: int, device) -> TorchEnv:
+# The C++ engine seeds env i of a batch seeded s with s + i * this (mod 2^64,
+# csrc/env_batch.cpp's EnvBatch).
+ENGINE_SEED_STRIDE = 0x9E3779B97F4A7C15
+
+
+def native_seed(first_worker: int, seed: int = 0) -> int:
+    """The batch seed whose env 0 is env ``first_worker`` of a batch seeded
+    ``seed``."""
+    return (seed + first_worker * ENGINE_SEED_STRIDE) % 2 ** 64
+
+
+def create_env(config: EnvConfig, n_workers: int, device,
+               first_worker: int = 0,
+               draw_workers: Optional[int] = None) -> TorchEnv:
+    env = _create_env(config, n_workers, device, first_worker)
+    if draw_workers is not None and not hasattr(env, "reset_all"):
+        env.draw_workers = draw_workers
+    return env
+
+
+def _create_env(config: EnvConfig, n_workers: int, device,
+                first_worker: int) -> TorchEnv:
     if config.type == "PocMemoryEnv":
         from .poc_memory import PocMemoryEnv
         return PocMemoryEnv(glob=False, freeze=True, max_episode_steps=32,
@@ -47,9 +75,9 @@ def create_env(config: EnvConfig, n_workers: int, device) -> TorchEnv:
         from .searing_spotlights import SearingSpotlightsEnv
         return SearingSpotlightsEnv(config.reset_params, n_workers, device)
     if config.type.endswith("-native"):
-        # As in the JAX package, no seed is passed: the engine's seed is 0.
+        # As in the JAX package, the engine's seed is 0 (on one device).
         from .native import NativeEnvBatch
-        return NativeEnvBatch(config.type)
+        return NativeEnvBatch(config.type, seed=native_seed(first_worker))
     if config.type in HOST_ENV_TYPES:
         from .host import HostEnvBatch
         host_config = config

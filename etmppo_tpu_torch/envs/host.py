@@ -125,7 +125,9 @@ class HostEnvBatch:
             raise RuntimeError("the host env batch is already started")
         if n_envs % n_groups != 0:
             raise ValueError(f"{n_envs} envs do not split into {n_groups} "
-                             "equal groups")
+                             "equal groups: host_pipeline_groups must "
+                             "divide a pool's envs, n_workers / "
+                             "num_devices under data parallelism")
         self._n_envs = n_envs
         self._n_groups = n_groups
         self._group_pipes: List[List[int]] = [[] for _ in range(n_groups)]

@@ -203,7 +203,7 @@ class MinigridMemoryEnv(TorchEnv):
 
     def sample_reset_draws(self, generator: torch.Generator
                            ) -> MinigridResetDraws:
-        W = self.n_workers
+        W = self.draw_width
         bits = torch.randint(0, 2, (2, W), generator=generator,
                              device=self.device).bool()
         start_x = torch.randint(1, self._hallway_end + 1, (W,),

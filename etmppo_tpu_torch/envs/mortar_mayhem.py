@@ -173,7 +173,7 @@ class MortarMayhemGridEnv(TorchEnv):
     def sample_reset_draws(self, generator: torch.Generator
                            ) -> MortarMayhemResetDraws:
         """Each command uniform among those whose target stays in the arena."""
-        W = self.n_workers
+        W = self.draw_width
         pos = self._start.expand(W, -1)
         commands = []
         for _ in range(self.command_count):

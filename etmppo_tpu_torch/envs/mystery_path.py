@@ -167,7 +167,7 @@ class MysteryPathGridEnv(TorchEnv):
 
     def sample_reset_draws(self, generator: torch.Generator
                            ) -> MysteryPathResetDraws:
-        W, S = self.n_workers, self.size
+        W, S = self.draw_width, self.size
         choice = torch.randint(0, len(self.origin_choices), (W,),
                                generator=generator, device=self.device)
         lateral0 = torch.randint(0, S, (W,), generator=generator,

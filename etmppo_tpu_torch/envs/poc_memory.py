@@ -74,7 +74,7 @@ class PocMemoryEnv(TorchEnv):
 
     def sample_reset_draws(self, generator: torch.Generator
                            ) -> PocMemoryResetDraws:
-        W = self.n_workers
+        W = self.draw_width
         start = torch.randint(0, len(self.start_ticks), (W,),
                               generator=generator, device=self.device)
         swapped = torch.rand(W, generator=generator, device=self.device) < 0.5

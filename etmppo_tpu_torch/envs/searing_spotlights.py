@@ -110,7 +110,7 @@ class SearingSpotlightsEnv(TorchEnv):
 
     def sample_reset_draws(self, generator: torch.Generator
                            ) -> SearingSpotlightsResetDraws:
-        W = self.n_workers
+        W = self.draw_width
 
         def uniform(shape, low, high):
             u = torch.rand((W,) + shape, generator=generator,
@@ -124,7 +124,7 @@ class SearingSpotlightsEnv(TorchEnv):
     def sample_step_draws(self, generator: torch.Generator) -> torch.Tensor:
         """(W, N_SPOTS, 2) uniform in [0, 1): the targets a spotlight takes
         if it arrives at its current one."""
-        return torch.rand(self.n_workers, N_SPOTS, 2, generator=generator,
+        return torch.rand(self.draw_width, N_SPOTS, 2, generator=generator,
                           device=self.device)
 
     def reset(self, draws: SearingSpotlightsResetDraws):

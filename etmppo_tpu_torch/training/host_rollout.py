@@ -10,10 +10,10 @@ step of t + 1, and ``_finish`` applies the last step's.
 
 Pipelining. With ``pipeline=True`` the workers are split into
 ``config.host_pipeline_groups`` groups (stepped down until the count
-divides ``n_workers``; only for an env with ``step_group``), and the groups
-rotate: group g's policy step for t + 1 is queued right after its host env
-step at t, so while the host steps one group's envs the card runs the other
-groups' policy steps. JAX gets this overlap from asynchronous dispatch, its
+divides ``n_workers`` on one device; only for an env with ``step_group``),
+and the groups rotate: group g's policy step for t + 1 is queued right
+after its host env step at t, so while the host steps one group's envs the
+card runs the other groups' policy steps. JAX gets this overlap from asynchronous dispatch, its
 ``np.asarray(actions)`` waiting for that group's program alone. Here every
 launch goes to one CUDA stream, where ``actions.cpu()`` would wait for all
 the work queued before it, the next group's policy step included. So the
@@ -36,6 +36,17 @@ episode ends for the agent at ``max_episode_steps``, as a truncation (done,
 no info, as the pool reports a respawned worker's envs), since such an index
 is an error in PyTorch (a device-side assert on the card).
 
+Data parallelism (a ``mesh``, ``parallel/mesh.py``): a rank's env holds its
+own workers (``mesh.worker_rows``), and each group's actions are drawn for
+the same group of every rank (``Wg * N`` rows) and the rank keeps its rows.
+With one group that is the one-device draw, row for row; with several, a
+rank's groups cannot be one device's groups (a rank's group g is a block of
+its own workers), so the run consumes the same random numbers in another
+assignment: it trains the same way but not on one device's trajectories.
+``host_pipeline_groups`` must divide a rank's workers there, and a count
+that does not raises (on one device it is stepped down, as in the JAX
+package).
+
 ``obs_uint8`` is refused here: the JAX package's host rollout stores the
 float observations unquantized while its update divides every minibatch's
 observations by 255, so such a run there trains on ``obs / 255``. The port
@@ -54,6 +65,7 @@ from ..models.kv_cache import KVCacheStep
 from ..ops import distributions
 from ..ops.gae import calc_advantages
 from ..ops.memory_index import build_memory_indices, build_memory_mask
+from ..parallel.mesh import DataMesh
 from .rollout import RolloutBatch, bootstrap_value
 
 
@@ -113,11 +125,12 @@ class HostRolloutFn:
     ``model``; actions are drawn from ``generator`` (on the model's device).
     ``pipeline=True`` (the default) splits the workers into groups that
     overlap one group's host env step with the others' policy steps (see
-    the module's docstring); ``n_groups`` is 1 without it."""
+    the module's docstring); ``n_groups`` is 1 without it. With a ``mesh``,
+    ``env`` holds this rank's workers."""
 
     def __init__(self, config: TrainConfig, env, model: ActorCriticModel,
                  generator: Optional[torch.Generator],
-                 pipeline: bool = True):
+                 pipeline: bool = True, mesh: Optional[DataMesh] = None):
         if config.obs_uint8:
             raise ValueError(
                 "obs_uint8 is not supported with a host env: the JAX "
@@ -135,15 +148,25 @@ class HostRolloutFn:
                                           device=self.device)
         self.index_table = torch.as_tensor(
             build_memory_indices(self.max_ep, L), device=self.device)
+        self.mesh = mesh
+        W = config.n_workers
+        rows = slice(0, W) if mesh is None else mesh.worker_rows(W)
+        self.n_workers = rows.stop - rows.start
         groups = max(1, config.host_pipeline_groups) if pipeline else 1
-        while groups > 1 and config.n_workers % groups != 0:
+        if not hasattr(env, "step_group"):
+            groups = 1
+        if mesh is not None and self.n_workers % groups != 0:
+            raise ValueError(
+                f"host_pipeline_groups ({groups}) must divide the workers of "
+                f"a rank, n_workers / num_devices = {W} / {mesh.size} = "
+                f"{self.n_workers}")
+        while groups > 1 and self.n_workers % groups != 0:
             groups -= 1
-        self.n_groups = groups if (groups > 1
-                                   and hasattr(env, "step_group")) else 1
+        self.n_groups = groups
 
     def init_state(self) -> HostRolloutState:
         trx = self.config.transformer
-        W = self.config.n_workers
+        W = self.n_workers
         try:
             self.env.start(W, n_groups=self.n_groups)
         except TypeError:  # engines without group support
@@ -158,21 +181,28 @@ class HostRolloutFn:
                                device=self.device))
 
     def group_rows(self, group: int) -> slice:
-        """The workers of ``group``."""
-        Wg = self.config.n_workers // self.n_groups
+        """The workers of ``group`` (of this rank's)."""
+        Wg = self.n_workers // self.n_groups
         return slice(group * Wg, (group + 1) * Wg)
 
     def sample_actions(self, logits, step: int, group: int):
         """Actions and log-probs of ``group``'s workers at ``step``; one
-        method so that a test can inject the JAX package's actions."""
+        method so that a test can inject the JAX package's actions. Under a
+        mesh the uniforms are drawn for that group of every rank."""
         del step, group
-        return distributions.sample_multi(logits, self.generator)
+        if self.mesh is None:
+            return distributions.sample_multi(logits, self.generator)
+        Wg = logits[0].shape[0]
+        return distributions.sample_multi(
+            logits, self.generator,
+            slice(self.mesh.rank * Wg, (self.mesh.rank + 1) * Wg),
+            Wg * self.mesh.size)
 
     @torch.no_grad()
     def __call__(self, state: HostRolloutState
                  ) -> Tuple[HostRolloutState, RolloutBatch]:
         cfg = self.config
-        W, T, G = cfg.n_workers, cfg.worker_steps, self.n_groups
+        W, T, G = self.n_workers, cfg.worker_steps, self.n_groups
         Wg = W // G
         dev = self.device
         model = self.model

@@ -35,10 +35,25 @@ compute dtype (JAX's ``_loss_pallas``); autograd casts the gradients the
 other way. With ``obs_uint8`` the batch holds the observations quantized to
 uint8, and ``minibatch`` turns them back into ``obs / 255`` floats after the
 gather, for every loss path.
+
+Data parallelism (a ``mesh``, ``parallel/mesh.py``): the batch is this
+rank's workers' rows. Every rank draws the same global permutation from its
+replicated generator; of each global minibatch of M samples it takes those
+whose worker is its own, in permutation order, with rank-local indices
+(``rank_minibatches``), so each rank projects only its own workers'
+timeline or sources and the kernels see a rank-local timeline. The loss is
+the rank's part of the global minibatch's: its advantages are normalised
+with the whole minibatch's mean and unbiased std (from the advantages of
+all workers, gathered once per update: one device's values in one device's
+order), and every mean is the rank's sum over the global count
+(``loss_from_outputs``). After the backward one ``all_reduce`` of one flat
+buffer sums every gradient and the six stats over the ranks
+(``mesh.all_reduce_flat``); every rank then clips and steps alike. A rank
+with no sample of a minibatch launches nothing and adds zeros.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -53,6 +68,7 @@ from ..ops.window_attention import (window_attention, window_attention_bwd,
                                     window_attention_bwd_grouped,
                                     window_attention_fwd,
                                     window_attention_fwd_grouped)
+from ..parallel.mesh import DataMesh, all_reduce_flat
 from .rollout import RolloutBatch
 
 STAT_NAMES = ("policy_loss", "value_loss", "loss", "entropy", "kl",
@@ -96,28 +112,37 @@ def grad_norm_groups(model: ActorCriticModel) -> Dict[str, torch.Tensor]:
 def loss_from_outputs(logits, value, mb, clip_range: float, beta: float,
                       value_loss_coefficient: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """PPO loss and its stats vector (``STAT_NAMES``) for one minibatch."""
+    """PPO loss and its stats vector (``STAT_NAMES``) for the samples of
+    ``mb``, a part of a global minibatch of ``mb["n_global"]`` samples (all
+    of it on one device): the advantages are normalised with the global
+    minibatch's ``mb["adv_mean"]`` and ``mb["adv_std"]``, and every mean is
+    the part's sum over the global count, so the parts' losses and stats add
+    up to the global minibatch's."""
     log_probs, entropies = distributions.log_probs_and_entropies(
         logits, mb["actions"])
     adv = mb["advantages"]
-    norm_adv = ((adv - adv.mean()) / (adv.std() + 1e-8))[:, None]
+    n = mb["n_global"]
+
+    def mean(x):
+        return x.sum() / (n * (x.numel() // x.shape[0]))
+    norm_adv = ((adv - mb["adv_mean"]) / (mb["adv_std"] + 1e-8))[:, None]
     log_ratio = log_probs - mb["log_probs"]
     ratio = torch.exp(log_ratio)
     surr1 = ratio * norm_adv
     surr2 = torch.clamp(ratio, 1.0 - clip_range, 1.0 + clip_range) * norm_adv
-    policy_loss = torch.minimum(surr1, surr2).mean()
+    policy_loss = mean(torch.minimum(surr1, surr2))
 
     sampled_return = mb["values"] + adv
     clipped_value = mb["values"] + torch.clamp(value - mb["values"],
                                                -clip_range, clip_range)
-    vf_loss = torch.maximum((value - sampled_return) ** 2,
-                            (clipped_value - sampled_return) ** 2).mean()
-    entropy_bonus = entropies.mean()
+    vf_loss = mean(torch.maximum((value - sampled_return) ** 2,
+                                 (clipped_value - sampled_return) ** 2))
+    entropy_bonus = mean(entropies)
     loss = -(policy_loss - value_loss_coefficient * vf_loss
              + beta * entropy_bonus)
 
-    approx_kl = ((ratio - 1.0) - log_ratio).mean()
-    clip_fraction = ((ratio - 1.0).abs() > clip_range).float().mean()
+    approx_kl = mean((ratio - 1.0) - log_ratio)
+    clip_fraction = mean(((ratio - 1.0).abs() > clip_range).float())
     stats = torch.stack([policy_loss, vf_loss, loss, entropy_bonus,
                          approx_kl, clip_fraction]).detach()
     return loss, stats
@@ -140,15 +165,20 @@ class PPOUpdate:
     """One PPO update of ``model`` from a rollout batch. The per-epoch
     permutations come from ``generator`` unless the caller passes them.
     ``grouped`` selects the grouped window-attention kernels (sorted by
-    worker) in place of the per-sample ones."""
+    worker) in place of the per-sample ones. With a ``mesh`` the batch is
+    this rank's workers' rows and the update is the global one (see the
+    module's docstring)."""
 
     def __init__(self, config: TrainConfig, model: ActorCriticModel,
                  max_episode_steps: int, generator: torch.Generator,
-                 grouped: bool = False):
+                 grouped: bool = False, mesh: Optional[DataMesh] = None):
         self.config = config
         self.model = model
         self.max_ep = max_episode_steps
         self.generator = generator
+        self.mesh = mesh
+        # This rank's samples in each minibatch of the last update.
+        self.rank_samples: List[int] = []
         # The window-attention kernels for CUDA tensors (CPU tensors take
         # their plain versions inside the op); no backward kernel means the
         # plain VJP.
@@ -270,11 +300,33 @@ class PPOUpdate:
                 if self.config.use_pallas_attention
                 else self.prepare_gathered(batch))
 
-    def minibatch(self, fields, idx: torch.Tensor):
+    def rank_minibatches(self, mb_indices: torch.Tensor
+                         ) -> List[torch.Tensor]:
+        """This rank's part of each global minibatch (a row of
+        ``mb_indices``, global sample indices ``w * T + t``): the samples of
+        its own workers, in the row's order, as rank-local indices; possibly
+        none. One host sync for the whole update."""
+        T = self.config.worker_steps
+        rows = self.mesh.worker_rows(self.config.n_workers)
+        lo, hi = rows.start * T, rows.stop * T
+        mine = (mb_indices >= lo) & (mb_indices < hi)
+        counts = mine.sum(dim=1).tolist()
+        first = torch.argsort((~mine).to(torch.int32), dim=1, stable=True)
+        local = torch.gather(mb_indices, 1, first) - lo
+        return [local[j, :c] for j, c in enumerate(counts)]
+
+    def minibatch(self, fields, idx: torch.Tensor,
+                  global_adv: Optional[torch.Tensor] = None):
+        """The samples ``idx`` (rank-local indices) of a global minibatch
+        whose advantages are ``global_adv`` (by default these samples': the
+        whole minibatch on one device), with that minibatch's advantage
+        statistics and size for ``loss_from_outputs``."""
         mb = {k: v[idx] for k, v in fields.items()}
         if mb["obs"].dtype == torch.uint8:          # obs_uint8
             mb["obs"] = mb["obs"].float() / 255.0
         mb["w_idx"] = (idx // self.config.worker_steps).to(torch.int32)
+        adv = mb["advantages"] if global_adv is None else global_adv
+        mb.update(adv_mean=adv.mean(), adv_std=adv.std(), n_global=adv.numel())
         return mb
 
     def __call__(self, batch: RolloutBatch, learning_rate: float,
@@ -296,14 +348,22 @@ class PPOUpdate:
         for group in self.optimizer.param_groups:
             group["lr"] = learning_rate
 
+        # The advantages of all workers, in the global sample order, and this
+        # rank's part of each minibatch (on one device, all of it).
+        if self.mesh is None:
+            advantages = batch.advantages.reshape(-1)
+            local_indices = list(mb_indices)
+        else:
+            advantages = self.mesh.gather_workers(
+                batch.advantages, "advantages").reshape(-1)
+            local_indices = self.rank_minibatches(mb_indices)
+        self.rank_samples = [len(i) for i in local_indices]
+
         stats_sum = torch.zeros(len(STAT_NAMES), device=device)
         groups_sum: Dict[str, torch.Tensor] = {}
-        for idx in mb_indices:
-            mb = self.minibatch(fields, idx)
-            loss, stats = self.loss(mb, memory, memory_slots, clip_range,
-                                    beta)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+        for idx, local_idx in zip(mb_indices, local_indices):
+            stats = self._backward(fields, local_idx, advantages[idx], memory,
+                                   memory_slots, clip_range, beta)
             clip_grads_torch(self.model, cfg.max_grad_norm)
             for k, v in grad_norm_groups(self.model).items():
                 groups_sum[k] = groups_sum.get(k, 0.0) + v
@@ -311,3 +371,29 @@ class PPOUpdate:
             stats_sum += stats
         n = len(mb_indices)
         return stats_sum / n, {k: v / n for k, v in groups_sum.items()}
+
+    def _backward(self, fields, local_idx, global_adv, memory, memory_slots,
+                  clip_range: float, beta: float) -> torch.Tensor:
+        """This rank's part of one global minibatch (``local_idx``, possibly
+        empty under a mesh; ``global_adv`` all its advantages): the backward
+        of its part of the loss, then, under a mesh, one all-reduce of the
+        gradients and the stats. Leaves the (summed) gradients in ``.grad``;
+        returns the (summed) stats."""
+        self.optimizer.zero_grad(set_to_none=True)
+        if local_idx.numel() > 0:
+            mb = self.minibatch(fields, local_idx, global_adv)
+            loss, stats = self.loss(mb, memory, memory_slots, clip_range,
+                                    beta)
+            loss.backward()
+        else:
+            stats = torch.zeros(len(STAT_NAMES), device=memory.device)
+        if self.mesh is None:
+            return stats
+        params = list(self.model.parameters())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        *summed, stats = all_reduce_flat(grads + [stats], self.mesh,
+                                         "gradients")
+        for p, g in zip(params, summed):
+            p.grad = g
+        return stats

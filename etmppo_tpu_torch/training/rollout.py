@@ -15,10 +15,16 @@ PE-only projections and its episode step to 0.
 With ``obs_uint8`` the batch stores each observation as
 ``quantize_obs(obs)``, a quarter of the bytes; the policy still sees the
 float observation, so the rollout itself is the float one's.
+
+Under data parallelism (a ``mesh``, ``parallel/mesh.py``) a rank collects
+its own workers' rows (``mesh.worker_rows``); every draw (reset, step and
+the actions' uniforms) is made for all W workers and the rank keeps its
+rows, so the rank's batch is those rows of the one-device batch. GAE, the
+memory indices and the bootstrap value are per worker and stay local.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +35,7 @@ from ..models.kv_cache import KVCacheStep
 from ..ops import distributions
 from ..ops.gae import calc_advantages
 from ..ops.memory_index import build_memory_indices
+from ..parallel.mesh import DataMesh, shard_worker_tree
 
 
 def quantize_obs(obs: torch.Tensor) -> torch.Tensor:
@@ -63,18 +70,33 @@ class RolloutFn:
     """Collects ``worker_steps`` steps of all workers with ``model``. Random
     draws come from ``generator``, on the env's device, in this order at
     each step: the actions, then the env's step draws (none for an env whose
-    step draws nothing), then the reset draws of all workers."""
+    step draws nothing), then the reset draws of all workers. With a
+    ``mesh``, ``env`` holds this rank's workers and draws for all
+    ``config.n_workers``."""
 
     def __init__(self, config: TrainConfig, env: TorchEnv,
-                 model: ActorCriticModel, generator: torch.Generator):
+                 model: ActorCriticModel, generator: torch.Generator,
+                 mesh: Optional[DataMesh] = None):
         self.config = config
         self.env = env
         self.model = model
         self.generator = generator
+        self.mesh = mesh
+        W = config.n_workers
+        self.rows = slice(0, W) if mesh is None else mesh.worker_rows(W)
+        self.n_workers = self.rows.stop - self.rows.start
+        if mesh is not None and (env.n_workers, env.draw_width) != (
+                self.n_workers, W):
+            raise ValueError(
+                f"rank {mesh.rank}'s env holds {env.n_workers} workers and "
+                f"draws for {env.draw_width}; it must hold its "
+                f"{self.n_workers} and draw for all {W}")
+        # The actions' uniforms: for all W workers, this rank's rows kept.
+        self._draw_rows = () if mesh is None else (self.rows, W)
         self.device = env.device
         trx = config.transformer
         self.max_ep = env.max_episode_steps
-        self.kv_step = KVCacheStep(model, config.n_workers, self.max_ep,
+        self.kv_step = KVCacheStep(model, self.n_workers, self.max_ep,
                                    trx.memory_length, self.device)
         self.index_table = torch.as_tensor(
             build_memory_indices(self.max_ep, trx.memory_length),
@@ -82,7 +104,7 @@ class RolloutFn:
 
     def init_state(self) -> RolloutState:
         trx = self.config.transformer
-        W = self.config.n_workers
+        W = self.n_workers
         env_state, obs = self.env.reset(self.reset_draws())
         return RolloutState(
             env_state=env_state, obs=obs,
@@ -93,20 +115,23 @@ class RolloutFn:
     # Random draws, one method each so that a test can inject the JAX ones.
 
     def reset_draws(self):
-        return self.env.sample_reset_draws(self.generator)
+        return shard_worker_tree(self.env.sample_reset_draws(self.generator),
+                                 self.mesh, self.config.n_workers)
 
     def step_draws(self):
-        return self.env.sample_step_draws(self.generator)
+        return shard_worker_tree(self.env.sample_step_draws(self.generator),
+                                 self.mesh, self.config.n_workers)
 
     def sample_actions(self, logits, step: int):
         del step
-        return distributions.sample_multi(logits, self.generator)
+        return distributions.sample_multi(logits, self.generator,
+                                          *self._draw_rows)
 
     @torch.no_grad()
     def __call__(self, state: RolloutState
                  ) -> Tuple[RolloutState, RolloutBatch]:
         cfg = self.config
-        W, T = cfg.n_workers, cfg.worker_steps
+        W, T = self.n_workers, cfg.worker_steps
         dev = self.device
         model = self.model
         workers = torch.arange(W, device=dev)

@@ -11,6 +11,8 @@
   consecutive host spans and the share of it in which the device ran a
   kernel, a copy or a memset.
 * ``Timer``: per-phase wall-clock totals.
+
+Under data parallelism ``cli.py --profile`` traces rank 0 alone.
 """
 from __future__ import annotations
 

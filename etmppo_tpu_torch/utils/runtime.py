@@ -12,7 +12,10 @@ Every entry point goes through it: ``PPOTrainer.__init__`` (training and
 ``cli.py``) and ``training/checkpoint.load_model``, which ``PolicyServer``,
 ``serve_http``, ``Evaluation`` through ``evaluate_model`` /
 ``evaluate_protocol``, and ``enjoy.run_episodes`` call. No other module of
-the package sets either flag.
+the package sets either flag. Under data parallelism every rank's
+``PPOTrainer`` calls it with the rank's device (``parallel/mesh.make_mesh``:
+``cuda:<LOCAL_RANK>`` under NCCL, the named card under gloo), so each
+process sets its own flags.
 
 ``compute_dtype`` reads a config's ``compute_dtype``: the dtype the model
 computes in (``torch.bfloat16`` runs it as flax's ``dtype=bfloat16`` does,

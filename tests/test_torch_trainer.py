@@ -123,14 +123,21 @@ def test_trainer_is_deterministic_given_the_seed(tmp_path):
     (dict(environment={"type": "CartPole-native"}), "CartPole-native"),
 ])
 def test_trainer_refuses_unported_options(tmp_path, overrides, match):
-    """Only ``num_devices > 1`` is still refused. ``compute_dtype:
-    bfloat16`` (parameters stay float32) and ``obs_uint8`` (the batch holds
-    uint8 obs), refused until they were ported, now train, as a ``-native``
-    env type trains through the host rollout."""
+    """Every option that was refused until it was ported now trains:
+    ``num_devices: 2`` on two gloo ranks (a trainer built without its rank's
+    mesh refuses, naming how to start the ranks), ``compute_dtype:
+    bfloat16`` (parameters stay float32), ``obs_uint8`` (the batch holds
+    uint8 obs), and a ``-native`` env type through the host rollout."""
     cfg = config_from_dict(_tiny(tmp_path, **overrides))
     if cfg.num_devices != 1:
-        with pytest.raises(NotImplementedError, match=match):
+        from etmppo_tpu_torch.parallel import probe
+        from etmppo_tpu_torch.parallel.mesh import spawn
+        with pytest.raises(RuntimeError, match=match):
             PPOTrainer(cfg, device="cpu", enable_metrics=False)
+        ranks = spawn(probe.train, 2, (cfg,), kwargs=dict(threads=1),
+                      device="cpu", timeout=300)
+        assert all(math.isfinite(v) for v in ranks[0]["results"][0].values())
+        assert torch.equal(ranks[0]["digests"][0], ranks[1]["digests"][0])
         return
     if not cfg.environment.type.endswith("-native"):
         trainer = PPOTrainer(cfg, device="cpu", enable_metrics=False)
@@ -305,6 +312,9 @@ def test_importing_the_port_loads_no_jax():
             "etmppo_tpu_torch.training.ppo, "
             "etmppo_tpu_torch.models.actor_critic, "
             "etmppo_tpu_torch.models.transformer, "
+            "etmppo_tpu_torch.parallel.mesh, "
+            "etmppo_tpu_torch.parallel.multihost, "
+            "etmppo_tpu_torch.parallel.probe, "
             "etmppo_tpu_torch.config; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'msgpack', 'optax', 'yaml', 'etmppo_tpu', "
