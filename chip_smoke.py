@@ -63,8 +63,11 @@ Phases, each printing one line with its seconds:
 5. mysterypath: two PPO updates of the Mystery Path Grid flagship at full
                 width (32 workers x 512 steps, TrXL 2 x 256, memory 96, 3
                 epochs x 8 minibatches) through run_training, checkpointing
-                every update; each kernel must launch exactly 48 times per
-                update and every logged stat must be finite. A fresh trainer
+                every update, so in fused launches of one update (the first
+                eager, then the graph's capture; the second a replay); each
+                kernel must launch exactly 48 times per update (a replay's
+                launches counted) and every logged stat must be finite; the
+                steady rate leaves out the first launch. A fresh trainer
                 resumes from the checkpoint bit for bit and takes one more
                 finite update; the saved .nn loads back to the same weights.
                 Then one more rollout and PPO update are timed apart, the
@@ -96,10 +99,10 @@ Phases, each printing one line with its seconds:
                 one minibatch through the kernel pair must match those of the
                 gathered-window path (plain PyTorch); and the PPO update is
                 timed with the plain and the kernel backward in turns.
-8. pocmemory:   6 PPO updates of PocMemory exactly as its YAML says (16
+8. pocmemory:   4 PPO updates of PocMemory exactly as its YAML says (16
                 workers x 128 steps, GTrXL 4 x 64, 4 epochs x 8 minibatches)
                 on the gathered-window loss, no kernel launched; prints the
-                steady env-steps/s, the success the 6th update reached
+                steady env-steps/s, the success the 4th update reached
                 (printed, not checked: the CPU test holds the bar), and one
                 more rollout and PPO update timed apart.
 9. cartpole:    three PPO updates of masked-velocity CartPole exactly as its
@@ -184,7 +187,8 @@ Phases, each printing one line with its seconds:
                 uint8 and equal round(obs * 255).clamp(0, 255) of the float
                 run's rollout from the same seeds (bytes printed); two
                 updates (120 launches of B1 and B2 each), the first update's
-                stats within 5% + 1e-3 of the float run's; then one more
+                stats within 5% + 1e-3 of the float run's on the obs the
+                uint8 run reads back (quantized, divided by 255); then one more
                 rollout of each and the PPO update in turns (float, uint8,
                 uint8, float).
 18. debug-nans: utils/runtime.set_debug_nans (the CLI's --debug-nans) on
@@ -225,6 +229,31 @@ Phases, each printing one line with its seconds:
                 two or more cards, the flagship at N = 1, 2 and 4 with NCCL,
                 a rank a card, 3 updates each: steady env-steps/s (updates
                 2-3).
+20. fused:      fused launches (training/fused.py) on the graph route: a
+                CUDA graph of a whole update, captured after an eager
+                warm-up update and replayed. (a) The MiniGrid flagship with
+                the grouped pair under PyTorch's deterministic algorithms
+                (their NaN fill of new tensors off):
+                an eager trainer's 8 updates and a fused trainer's 2
+                launches of 4 from the same seed must give the same actions
+                and logged values and, after each launch, the same
+                parameters, optimizer state, rollout state and generators,
+                to the bit; B3 and B4 counted 120 times an update on the
+                replays. (d) A
+                trainer resumed from the checkpoint of launch 1 runs launch
+                2 to the same bits. (b) The flagship as its YAML says (the
+                per-sample pair): 2 launches of 4; B1 and B2 counted 960
+                times each, and 120 times each by name in a profiler trace
+                of one replayed update (and its device busy share, beside
+                trainer-busy's eager one); stats finite; update 1's actions
+                equal an eager trainer's. (c) Mystery Path Grid (grouped)
+                and PocMemory: a launch of 4 equal to 4 eager updates to
+                the bit, deterministic algorithms on. Then Searing
+                Spotlights and masked CartPole must capture and replay (a
+                launch of 2, stats finite). Prints each
+                graph's capture and instantiation seconds, nodes and pool
+                bytes, the first launch's seconds and launch 2's s/update
+                and env-steps/s beside the eager trainer's.
 No window-attention kernel may launch in phases 10-14. The flagship phase
 (4) also prints flagship-mfu: the FLOPs of a PPO update (counted_flops of
 one minibatch's forward and backward, plus window_attention_flops for the
@@ -287,8 +316,9 @@ MYSTERY_LAUNCHES = 48          # per update: 2 blocks x 3 epochs x 8 minibatches
 MORTAR_LAUNCHES = 72           # per update: 3 blocks x 3 epochs x 8 minibatches
 SEARING_LAUNCHES = 48          # per update: 2 blocks x 3 epochs x 8 minibatches
 # PocMemory's run: its success is printed, not checked (the CPU test holds
-# the bar in 30 updates); cut from 30 as phases 16-18 came in.
-POC_UPDATES = 6
+# the bar in 30 updates); cut from 30 as phases 16-18 came in, and from 6
+# as phase 20 did.
+POC_UPDATES = 4
 # Serving (phases 10-13), on committed artifacts under models/.
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_NN = "minigrid-r3_s0.nn"
@@ -869,17 +899,17 @@ def _assert_same(a, b, where: str) -> None:
     """Bit-for-bit equality of nested dicts/lists of tensors and values."""
     if isinstance(a, torch.Tensor):
         if not torch.equal(a.cpu(), b.cpu()):
-            raise RuntimeError(f"resume: {where} differs")
+            raise RuntimeError(f"{where} differs")
     elif isinstance(a, dict):
         if set(a) != set(b):
-            raise RuntimeError(f"resume: {where} keys differ")
+            raise RuntimeError(f"{where}: the keys differ")
         for k in a:
             _assert_same(a[k], b[k], f"{where}/{k}")
     elif isinstance(a, (list, tuple)):
         for i, (x, y) in enumerate(zip(a, b, strict=True)):
             _assert_same(x, y, f"{where}/{i}")
     elif a != b:
-        raise RuntimeError(f"resume: {where} differs ({a} vs {b})")
+        raise RuntimeError(f"{where} differs ({a} vs {b})")
 
 
 def run_mysterypath(device, k) -> list:
@@ -913,7 +943,9 @@ def run_mysterypath(device, k) -> list:
         phase("mysterypath", t,
               f"{UPDATES} updates, launches fwd {launches[0]} bwd "
               f"{launches[1]}; env-steps/s {result['env_steps_per_second']:.0f}"
-              f" (steady {result['env_steps_per_second_steady']:.0f})")
+              f" (steady {result['env_steps_per_second_steady']:.0f}: without"
+              " the first launch, update 1 and the graph's capture; update 2"
+              " a replay)")
 
         t = time.perf_counter()
         resumed = PPOTrainer(config, run_id="mpg", device=device,
@@ -921,7 +953,7 @@ def run_mysterypath(device, k) -> list:
         if not resumed.resume_from_checkpoint() or resumed.update != UPDATES:
             raise RuntimeError(f"resume: at update {resumed.update}")
         _assert_same(resumed._training_state(), trainer._training_state(),
-                     "state")
+                     "resume: state")
         for kernel in k.values():
             kernel.launches = 0
         stats = resumed.train_one_update()
@@ -1896,11 +1928,18 @@ BF16_ULP = 2.0 ** -7
 # ulps (2^-5) of the largest (at least 1); actions equal away from near
 # ties (hold_raw_memory's near_ties).
 SERVE_BF16_RTOL = 2.0 ** -5
-# obs_uint8 against float obs: the quantized obs differ by at most half a
-# level (1/510); the first minibatch's loss moves by ~1e-3 of itself and
-# later minibatches start from parameters that AdamW moved apart by up to lr
-# where a gradient is at noise level. Each stat of the first update within
-# 5% of the float run's plus 1e-3 (the KL and the clip fraction lie near 0).
+# obs_uint8 against float obs: the uint8 run's first update against the
+# float run's on the obs it reads back (its batch obs quantized, then
+# divided by 255), so that the two updates read the same values and differ
+# only by the storage path and B2's and cuDNN's atomics; later minibatches
+# start from parameters that AdamW moved apart by up to lr where a gradient
+# is at noise level. Each stat within 5% of the float run's plus 1e-3 (the
+# KL and the clip fraction lie near 0). Against the float run on its own
+# float obs, the half-level quantization (up to 1/510 on 7% of the pixels)
+# makes update 1's clip fraction land 5-10% apart with the capturable AdamW
+# and 1-3% apart with the non-capturable one, in the code before the fused
+# launch as after it (PERF.md §6): it measures the optimizer's last bits, so
+# it is not the held comparison.
 UINT8_STAT_RTOL, UINT8_STAT_ATOL = 0.05, 1e-3
 
 
@@ -2170,10 +2209,20 @@ def run_obs_uint8(device, k) -> list:
                   f"{obs8.nbytes / 1e6:.1f} MB uint8; values, actions and "
                   f"tape {'equal' if same else 'differ'}")
             del batches, obs32, obs8
+            # The float run's first update reads what the uint8 run's reads
+            # back (UINT8_STAT_RTOL's comment).
+            rollout = trainers[False].rollout_fn
+
+            def read_back(state):
+                final, batch = rollout(state)
+                return final, batch._replace(
+                    obs=quantize_obs(batch.obs).float() / 255.0)
+            trainers[False].rollout_fn = read_back
             t = time.perf_counter()
             first32 = trainers[False].train_one_update()
             torch.cuda.synchronize()
             float_s = time.perf_counter() - t
+            trainers[False].rollout_fn = rollout
             t = time.perf_counter()
             per_update, _, results = train_counted(
                 trainers[True], k, "obs-uint8",
@@ -2195,7 +2244,8 @@ def run_obs_uint8(device, k) -> list:
                       f"{s:.2f}" for s in per_update)
                   + f" (float obs: update 1 {float_s:.2f}s); update 1 stats "
                   f"within {worst:.2f} of their tolerance of the float run's "
-                  f"(loss {first8['loss']:.6f} vs {first32['loss']:.6f})")
+                  "on the obs read back from uint8 (loss "
+                  f"{first8['loss']:.6f} vs {first32['loss']:.6f})")
             phase("obs-uint8-split", *split_in_turns(
                 {"float obs": trainers[False], "uint8 obs": trainers[True]},
                 (k[NAMES[0]], k[NAMES[1]]))[:2])
@@ -2299,9 +2349,9 @@ DP_SCALING_UPDATES = 3         # N = 1, 2, 4 on their own cards: updates 2-3 tim
 
 
 def check_counts(counts: dict, expected: dict, label: str) -> None:
-    """A rank's launches of each kernel in one update (``probe.train``'s
-    ``launches``) against ``expected`` (name -> launches; every other
-    kernel never)."""
+    """Launches of each kernel (a rank's in one update, ``probe.train``'s
+    ``launches``, or a fused run's) against ``expected`` (name -> launches;
+    every other kernel never)."""
     for name in NAMES:
         if counts[name] != expected.get(name, 0):
             raise RuntimeError(f"{label}: {name} launched {counts[name]} "
@@ -2674,6 +2724,401 @@ def run_dp_scaling(device, cards: int = 0) -> None:
             phase("data-parallel-scaling", t, detail)
 
 
+# --- phase 20: fused launches (training/fused.py) ---------------------------
+
+FUSED_CHUNK = 4                # updates a launch: the YAMLs' updates_per_launch
+FUSED_CHUNKS = 2
+# B1's and B2's CUDA functions, as a profiler trace names them.
+FUSED_KERNEL_NAMES = ("window_attention_fwd_kernel",
+                      "window_attention_bwd_kernel")
+# Updates a launch of the configurations held only to run on the graph route.
+FUSED_ROUTE_UPDATES = 2
+
+
+class ActionRecorder:
+    """A trainer's rollout that also keeps each rollout's actions: row n of
+    ``actions`` (rows, W, T, branches) on the device, n a counter there, so
+    that a captured rollout records on every replay too. It draws nothing
+    and changes no value of the rollout's."""
+
+    def __init__(self, rollout_fn, rows: int):
+        self.fn = rollout_fn
+        self.rows = rows
+        self.actions = None
+        self.count = torch.zeros((), dtype=torch.int64,
+                                 device=rollout_fn.device)
+        self._row = torch.arange(rows, device=rollout_fn.device).reshape(
+            -1, 1, 1, 1)
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __call__(self, state):
+        final, batch = self.fn(state)
+        if self.actions is None:
+            self.actions = torch.zeros(
+                (self.rows,) + tuple(batch.actions.shape),
+                dtype=batch.actions.dtype, device=batch.actions.device)
+        self.actions.copy_(torch.where(self._row == self.count,
+                                       batch.actions[None], self.actions))
+        self.count += 1
+        return final, batch
+
+
+def record_actions(trainer, rows: int) -> ActionRecorder:
+    recorder = ActionRecorder(trainer.rollout_fn, rows)
+    trainer.rollout_fn = recorder
+    trainer.fused_loop.rollout_fn = recorder
+    return recorder
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms (warn only) and cuDNN's
+    deterministic mode, as the determinism phase sets them, without their
+    NaN fill of every new tensor: the fill adds some 40% of a graph's nodes
+    and of an eager update's seconds, and changes no value compared here
+    (a read of memory never written would differ between the graph's pool
+    and an eager allocation, and fail the comparison)."""
+    import torch.utils.deterministic as det
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        torch.backends.cudnn.deterministic = flags[2]
+        det.fill_uninitialized_memory = flags[3]
+
+
+def cpu_tree(tree):
+    """A copy on the host of nested dicts, lists and tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cpu_tree(v) for v in tree)
+    return tree
+
+
+def same_results(eager: list, fused: list, label: str) -> None:
+    """Every logged value of every update equal, to the bit."""
+    for u, (a, b) in enumerate(zip(eager, fused, strict=True)):
+        if a != b:
+            diff = {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+                    if a.get(k) != b.get(k)}
+            raise RuntimeError(f"{label}: update {u + 1} differs: {diff}")
+
+
+def fused_trainer(raw: dict, tmp: str, run_id: str, device, grouped: bool,
+                  **overrides):
+    """A trainer of ``raw`` (a YAML as a dict) whose fused launches run
+    FUSED_CHUNK updates; it must have taken the graph route."""
+    from etmppo_tpu_torch.config import config_from_dict
+    from etmppo_tpu_torch.training.trainer import PPOTrainer
+    config = dataclasses.replace(
+        config_from_dict(raw), updates_per_launch=FUSED_CHUNK,
+        summary_dir=tmp, checkpoint_dir=tmp, **overrides)
+    trainer = PPOTrainer(config, run_id=run_id, device=device,
+                         enable_metrics=False, grouped=grouped)
+    check_graph_route(trainer, run_id)
+    return trainer
+
+
+def check_graph_route(trainer, label: str) -> None:
+    if trainer.fused_route != "graph":
+        trainer.close()
+        raise RuntimeError(f"{label}: the fused route on the card is "
+                           f"{trainer.fused_route!r}, not 'graph'")
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def capture_line(trainer) -> str:
+    c = trainer.fused_loop.capture
+    return (f"capture {c['capture_s']:.2f}s, instantiate "
+            f"{c['instantiate_s']:.2f}s, {c['nodes']} nodes, graph pool "
+            f"{c['pool_bytes'] / 2**20:.0f} MiB")
+
+
+def kernel_events(trace_file: str) -> dict:
+    """The launches of each CUDA function in a Chrome trace, by name."""
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    names: dict = {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") == "kernel":
+            names[ev["name"]] = names.get(ev["name"], 0) + 1
+    return names
+
+
+def named_launches(names: dict, function: str) -> int:
+    """The launches of ``function`` (any template instance of it)."""
+    return sum(n for name, n in names.items()
+               if re.search(rf"\b{function}\b", name))
+
+
+def traced_replay(trainer, log_dir: str) -> tuple:
+    """One more update of a trainer on the graph route, a replay, under
+    utils/profiling.trace: the device busy share of the update
+    (``utils/profiling.device_busy`` over the span ``fused_chunk``) and the
+    launches of each CUDA function by name."""
+    from etmppo_tpu_torch.utils.profiling import TRACE_FILE, device_busy, trace
+    with trace(log_dir):
+        trainer.train_chunk(1)
+        torch.cuda.synchronize()
+    path = os.path.join(log_dir, TRACE_FILE)
+    return device_busy(path, ("fused_chunk",))["total"], kernel_events(path)
+
+
+def busy(shares: dict) -> str:
+    return (f"{shares['busy_share'] * 100:.1f}% of {shares['wall_s']:.3f}s "
+            f"({shares['busy_s']:.3f}s busy)")
+
+
+def fused_against_eager(raw: dict, tmp: str, name: str, device, grouped: bool,
+                        chunks: int, k: dict, per_update: dict) -> dict:
+    """An eager trainer's ``chunks`` x FUSED_CHUNK updates
+    (train_one_update) and a fused trainer's ``chunks`` launches
+    (train_chunk) from the same seed, with PyTorch's deterministic
+    algorithms: every update's actions and logged values, and after each
+    launch the parameters, the optimizer state, the rollout state and both
+    generators, equal to the bit; the fused launches must count
+    ``per_update`` (name -> launches) of each kernel an update. The fused
+    trainer saves a checkpoint after its first launch. Returns the two
+    trainers' numbers."""
+    n = chunks * FUSED_CHUNK
+    out: dict = {}
+    with deterministic_algorithms():
+        eager = fused_trainer(raw, tmp, f"{name}-eager", device, grouped)
+        try:
+            fused = fused_trainer(raw, tmp, f"{name}-fused", device, grouped,
+                                  checkpoint_interval=FUSED_CHUNK)
+        except RuntimeError:
+            eager.close()
+            raise
+        try:
+            recorders = [record_actions(t, n + 1) for t in (eager, fused)]
+            eager_results, states = [], []
+            out["eager_s"] = []
+            for u in range(n):
+                result, s = timed(eager.train_one_update)
+                eager_results.append(result)
+                out["eager_s"].append(s)
+                if (u + 1) % FUSED_CHUNK == 0:
+                    states.append(cpu_tree(eager._training_state()))
+            fused_results, out["chunk_s"] = [], []
+            before = {kn: kernel.launches for kn, kernel in k.items()}
+            for c in range(chunks):
+                results, s = timed(lambda: fused.train_chunk(FUSED_CHUNK))
+                fused_results += results
+                out["chunk_s"].append(s)
+                if c == 0:
+                    fused._save_checkpoint()
+                _assert_same(states[c], fused._training_state(),
+                             f"{name}: the fused state after launch {c + 1}")
+            counted = {kn: kernel.launches - before[kn]
+                       for kn, kernel in k.items()}
+            check_counts(counted, {kn: v * n for kn, v in per_update.items()},
+                         f"{name}: the fused launches")
+            same_results(eager_results, fused_results, name)
+            if list(eager.episode_infos) != list(fused.episode_infos):
+                raise RuntimeError(f"{name}: the episode infos differ")
+            if not torch.equal(recorders[0].actions[:n],
+                               recorders[1].actions[:n]):
+                raise RuntimeError(f"{name}: the actions differ")
+            out.update(capture=capture_line(fused), counted=counted,
+                       final=cpu_tree(fused._training_state()),
+                       results=fused_results[FUSED_CHUNK:])
+        finally:
+            eager.close()
+            fused.close()
+    return out
+
+
+def rate_line(steps: int, eager_s: list, launch_s: float) -> str:
+    """Launch 2's s/update and env-steps/s beside the eager trainer's
+    (without its first update)."""
+    steady, eager = launch_s / FUSED_CHUNK, eager_s[1:]
+    mean = sum(eager) / len(eager)
+    return (f"launch 2 {launch_s:.3f}s = {steady:.4f} s/update, "
+            f"{steps / steady:.0f} env-steps/s; eager {mean:.4f} s/update "
+            f"(updates 2-{len(eager_s)}), {steps / mean:.0f} env-steps/s; "
+            f"fused/eager rate {mean / steady:.2f}x")
+
+
+def run_fused(device, k) -> list:
+    """Phase 20: fused launches of whole updates (training/fused.py) on the
+    graph route, held against eager updates. Returns the launches of the
+    phase, in the order of NAMES."""
+    from etmppo_tpu_torch.config import (CARTPOLE_MASKED, MINIGRID_FLAGSHIP,
+                                         MYSTERY_PATH_GRID, POC_MEMORY,
+                                         SEARING_SPOTLIGHTS)
+    t = time.perf_counter()
+    for kernel in k.values():
+        kernel.launches = 0
+    flagship_steps = (MINIGRID_FLAGSHIP["n_workers"]
+                      * MINIGRID_FLAGSHIP["worker_steps"])
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the flagship with the grouped pair: the deterministic route.
+        a = fused_against_eager(
+            MINIGRID_FLAGSHIP, tmp, "flagship-grouped", device, True,
+            FUSED_CHUNKS, k, {n: FLAGSHIP_LAUNCHES for n in NAMES[2:]})
+        phase("fused", t,
+              f"flagship, grouped pair, deterministic algorithms: "
+              f"{FUSED_CHUNKS} launches of {FUSED_CHUNK} updates on the "
+              f"graph route equal {FUSED_CHUNKS * FUSED_CHUNK} eager updates "
+              "to the bit (actions, logged values, parameters, optimizer, "
+              "rollout state, generators); "
+              f"B3, B4 counted {a['counted'][NAMES[2]]}, "
+              f"{a['counted'][NAMES[3]]}; {a['capture']}; first launch "
+              f"{a['chunk_s'][0]:.2f}s; "
+              + rate_line(flagship_steps, a["eager_s"], a["chunk_s"][1]))
+
+        # (d) a resume across the launch boundary on route (a).
+        t = time.perf_counter()
+        with deterministic_algorithms():
+            resumed = fused_trainer(MINIGRID_FLAGSHIP, tmp,
+                                    "flagship-grouped-fused", device, True,
+                                    checkpoint_interval=FUSED_CHUNK)
+            try:
+                if (not resumed.resume_from_checkpoint()
+                        or resumed.update != FUSED_CHUNK):
+                    raise RuntimeError(f"fused resume: at update "
+                                       f"{resumed.update}")
+                same_results(a["results"], resumed.train_chunk(FUSED_CHUNK),
+                             "fused resume")
+                _assert_same(a["final"], resumed._training_state(),
+                             "fused resume: the state after launch 2")
+            finally:
+                resumed.close()
+        phase("fused-resume", t,
+              f"resumed at update {FUSED_CHUNK} from launch 1's checkpoint;"
+              " launch 2 (its update 5 eager, then a new capture) equals the "
+              "uninterrupted run's to the bit")
+
+        # (b) the flagship as its YAML says: the per-sample pair.
+        t = time.perf_counter()
+        n = FUSED_CHUNKS * FUSED_CHUNK
+        eager = fused_trainer(MINIGRID_FLAGSHIP, tmp, "flagship-eager",
+                              device, False)
+        fused = fused_trainer(MINIGRID_FLAGSHIP, tmp, "flagship-fused",
+                              device, False)
+        try:
+            recorders = [record_actions(tr, n + 1) for tr in (eager, fused)]
+            _, eager_s = timed(eager.train_one_update)
+            before = [k[name].launches for name in NAMES]
+            chunk_s, results = [], []
+            for _ in range(FUSED_CHUNKS):
+                r, s = timed(lambda: fused.train_chunk(FUSED_CHUNK))
+                results += r
+                chunk_s.append(s)
+            counted = [k[name].launches - b for name, b in zip(NAMES, before)]
+            check_counts(dict(zip(NAMES, counted)),
+                         {name: FLAGSHIP_LAUNCHES * n for name in NAMES[:2]},
+                         "fused flagship: the fused launches")
+            for u, r in enumerate(results):
+                bad = {key: v for key, v in r.items()
+                       if not math.isfinite(v)}
+                if bad:
+                    raise RuntimeError(f"fused flagship update {u + 1}: "
+                                       f"non-finite stats {bad}")
+            if not torch.equal(recorders[0].actions[0],
+                               recorders[1].actions[0]):
+                raise RuntimeError("fused flagship: update 1's actions differ"
+                                   " from the eager trainer's")
+            fused_busy, names = traced_replay(
+                fused, os.path.join(tmp, "flagship-fused-trace"))
+            ran = [named_launches(names, f) for f in FUSED_KERNEL_NAMES]
+            if ran != [FLAGSHIP_LAUNCHES] * 2:
+                raise RuntimeError(f"fused flagship: the traced replay ran "
+                                   f"B1, B2 {ran} times")
+            phase("fused-flagship", t,
+                  f"the flagship as its YAML says (per-sample pair): "
+                  f"{FUSED_CHUNKS} launches of {FUSED_CHUNK} on the graph "
+                  f"route, B1 and B2 counted {counted[0]} and {counted[1]} "
+                  f"times; the traced replay of update {n + 1} ran "
+                  f"{FUSED_KERNEL_NAMES[0]} {ran[0]} and "
+                  f"{FUSED_KERNEL_NAMES[1]} {ran[1]} times by name; stats "
+                  f"finite; update 1's actions equal the eager trainer's; "
+                  f"{capture_line(fused)}; first launch {chunk_s[0]:.2f}s; "
+                  f"launch 2 {chunk_s[1]:.3f}s = "
+                  f"{chunk_s[1] / FUSED_CHUNK:.4f} s/update, "
+                  f"{flagship_steps * FUSED_CHUNK / chunk_s[1]:.0f} "
+                  f"env-steps/s (eager: update 1 {eager_s:.2f}s here, the "
+                  "steady rate in trainer and fused); device busy: a "
+                  f"replayed update {busy(fused_busy)} (traced; an eager "
+                  "one: trainer-busy)")
+        finally:
+            eager.close()
+            fused.close()
+        del eager, fused
+        torch.cuda.empty_cache()
+
+        # (c) Mystery Path Grid (its path-walk reset; with the grouped pair,
+        # so that the update is deterministic) and PocMemory (the gathered
+        # loss, no kernel).
+        for name, raw, grouped in (("mysterypath", MYSTERY_PATH_GRID, True),
+                                   ("pocmemory", POC_MEMORY, False)):
+            t = time.perf_counter()
+            blocks = raw["transformer"]["num_blocks"]
+            per_update = ({n: blocks * raw["epochs"] * raw["n_mini_batch"]
+                           for n in NAMES[2:]} if grouped else {})
+            c = fused_against_eager(raw, tmp, name, device, grouped, 1, k,
+                                    per_update)
+            steps = raw["n_workers"] * raw["worker_steps"]
+            eager = c["eager_s"][1:]
+            mean = sum(eager) / len(eager)
+            phase(f"fused-{name}", t,
+                  f"one launch of {FUSED_CHUNK} on the graph route equals "
+                  f"{FUSED_CHUNK} eager updates to the bit (deterministic "
+                  f"algorithms{', grouped pair' * grouped}); "
+                  f"{c['capture']}; the launch {c['chunk_s'][0]:.2f}s "
+                  f"(warm-up and capture in it); eager {mean:.4f} s/update "
+                  f"(updates 2-{FUSED_CHUNK}), {steps / mean:.0f} "
+                  "env-steps/s")
+            torch.cuda.empty_cache()
+
+        # The CLI takes the graph route for every device env on the card:
+        # Searing Spotlights (the env that draws in its step) and masked
+        # CartPole must capture too (Mortar Mayhem Grid's env did on the
+        # card, PERF.md §5; left out for the script's time).
+        t = time.perf_counter()
+        lines = []
+        for name, raw in (("searingspotlights", SEARING_SPOTLIGHTS),
+                          ("cartpole", CARTPOLE_MASKED)):
+            trainer = fused_trainer(raw, tmp, name, device, False)
+            try:
+                results, s = timed(
+                    lambda: trainer.train_chunk(FUSED_ROUTE_UPDATES))
+                for u, r in enumerate(results):
+                    bad = {key: v for key, v in r.items()
+                           if not math.isfinite(v)}
+                    if bad:
+                        raise RuntimeError(f"fused {name} update {u + 1}: "
+                                           f"non-finite stats {bad}")
+                lines.append(f"{name} {capture_line(trainer)}, the launch "
+                             f"{s:.2f}s")
+            finally:
+                trainer.close()
+            torch.cuda.empty_cache()
+        phase("fused-routes", t,
+              f"a launch of {FUSED_ROUTE_UPDATES} (an eager update, then a "
+              "replay) on the graph route, stats finite: " + "; ".join(lines))
+    return [k[name].launches for name in NAMES]
+
+
 def update_mfu(trainer, batch, update_s: float) -> str:
     """The FLOPs of one PPO update of ``trainer`` (``counted_flops`` of one
     minibatch's forward and backward through the kernel pair, plus
@@ -2801,6 +3246,8 @@ def main() -> int:
     launches["debug_nans"] = run_debug_nans(device, k)
     torch.cuda.empty_cache()
     launches["data_parallel"] = run_data_parallel(device, k)
+    torch.cuda.empty_cache()
+    launches["fused"] = run_fused(device, k)
     check_float32("before the result line")
 
     entries = []

@@ -144,7 +144,7 @@ def _train_seeds(args, mesh=None):
             continue
         print(f"env steps/s: {result['env_steps_per_second']:,.0f}")
         if "env_steps_per_second_steady" in result:
-            print(f"env steps/s (steady, without the first update): "
+            print(f"env steps/s (steady, without the first launch): "
                   f"{result['env_steps_per_second_steady']:,.0f}")
     if len(results) > 1 and primary:
         import numpy as np

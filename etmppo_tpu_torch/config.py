@@ -381,9 +381,10 @@ class TrainConfig:
     checkpoint_dir: str = "./models"
     summary_dir: str = "./summaries"
     num_devices: int = 1
-    # Read by the JAX package (fused device programs, host env pipelining);
-    # kept so its config files load, unused here: PyTorch runs eagerly.
+    # Updates a fused launch runs (training/fused.py; > 1 fuses a device
+    # env's updates into chunks).
     updates_per_launch: int = 8
+    # Worker groups of the pipelined host rollout (training/host_rollout.py).
     host_pipeline_groups: int = 2
     obs_uint8: bool = False
 

@@ -173,6 +173,10 @@ class MinigridMemoryEnv(TorchEnv):
         self._depth = as_t([2, 1, 0])[:, None]
         self._lateral = as_t([-1, 0, 1])[None, :]
         self._bit_weights = as_t(1 << np.arange(9)).reshape(3, 3)
+        # The cells beside each object, made once: a reset copies no host
+        # data to the device (a CUDA graph can replay it).
+        self._succ_top = as_t([obj_top[0], obj_top[1] + 1])
+        self._succ_bottom = as_t([obj_bottom[0], obj_bottom[1] - 1])
         self.observation_shape: Tuple[int, ...] = (TILE * VIEW, TILE * VIEW, 3)
         self.action_branches: Tuple[int, ...] = (3,)
 
@@ -194,7 +198,7 @@ class MinigridMemoryEnv(TorchEnv):
         view = torch.where(in_bounds, state.grid[w, y, x], WALL)   # (W, 3, 3)
         pattern = ((view == WALL).long() * self._bit_weights).sum(dim=(1, 2))
         view = torch.where(self._vis_table[pattern], view, UNSEEN)
-        view[:, 2, 1] = NUM_CELL_TYPES                       # agent tile
+        view[:, 2, 1].fill_(NUM_CELL_TYPES)                  # agent tile
         tiles = self._sprites[view]                          # (W, 3, 3, T, T, 3)
         return tiles.permute(0, 1, 3, 2, 4, 5).reshape(
             W, VIEW * TILE, VIEW * TILE, 3)
@@ -222,10 +226,7 @@ class MinigridMemoryEnv(TorchEnv):
 
         # success next to the object matching the cue
         top_matches = (draws.cue_is_key == draws.top_is_key)[:, None]
-        succ_top = torch.tensor([self._obj_top[0], self._obj_top[1] + 1],
-                                device=self.device)
-        succ_bottom = torch.tensor(
-            [self._obj_bottom[0], self._obj_bottom[1] - 1], device=self.device)
+        succ_top, succ_bottom = self._succ_top, self._succ_bottom
         success_pos = torch.where(top_matches, succ_top, succ_bottom)
         failure_pos = torch.where(top_matches, succ_bottom, succ_top)
 

@@ -62,14 +62,16 @@ class PocMemoryEnv(TorchEnv):
         self.start_ticks = torch.as_tensor(
             np.unique(np.round(positions / step_size).astype(np.int64)),
             device=self.device)
+        # Made once: a reset copies no host data to the device (a CUDA graph
+        # can replay it).
+        self._minus_plus = torch.tensor([-1.0, 1.0], device=self.device)
 
         self.observation_shape: Tuple[int, ...] = (3,)
         self.action_branches: Tuple[int, ...] = (2,)
 
     def _obs(self, state: PocMemoryState, show_goals) -> torch.Tensor:
         pos = state.ticks.float() * self.step_size
-        goals = torch.where(torch.as_tensor(show_goals, device=self.device)
-                            .reshape(-1, 1), state.goals, 0.0)
+        goals = torch.where(show_goals.reshape(-1, 1), state.goals, 0.0)
         return torch.stack([goals[:, 0], pos, goals[:, 1]], dim=1)
 
     def sample_reset_draws(self, generator: torch.Generator
@@ -82,15 +84,15 @@ class PocMemoryEnv(TorchEnv):
 
     def reset(self, draws: PocMemoryResetDraws):
         W = draws.start.shape[0]
-        minus_plus = torch.tensor([-1.0, 1.0], device=self.device)
-        goals = torch.where(draws.swapped[:, None], minus_plus.flip(0),
-                            minus_plus)
+        goals = torch.where(draws.swapped[:, None], self._minus_plus.flip(0),
+                            self._minus_plus)
         zeros = torch.zeros(W, dtype=torch.int64, device=self.device)
         state = PocMemoryState(
             ticks=self.start_ticks[draws.start.long()], goals=goals,
             step_count=zeros, reward_sum=torch.zeros(W, device=self.device),
             length=zeros)
-        return state, self._obs(state, show_goals=True)
+        return state, self._obs(state, show_goals=torch.ones(
+            W, dtype=torch.bool, device=self.device))
 
     def render_ascii(self, state: PocMemoryState, worker: int = 0) -> str:
         """One worker's track as text: the agent ``a``, each goal ``+`` or

@@ -192,8 +192,9 @@ def train(mesh: Optional[DataMesh], config: TrainConfig, run_id: str = "probe",
         trainer.rollout_fn = _Timed(rollout_fn, seconds["rollout"],
                                     trainer.device)
         trainer.rollout_fn.keep = 1
-        trainer.update_fn = _Timed(
-            trainer.update_fn, seconds["ppo_update"], trainer.device,
+        # The trainer runs each PPO update through PPOUpdate.run.
+        trainer.update_fn.run = _Timed(
+            trainer.update_fn.run, seconds["ppo_update"], trainer.device,
             [dict(perms=p) for p in replay.perms]
             if replay is not None and replay.perms is not None else None)
         first_grads: List[Dict[str, torch.Tensor]] = []

@@ -9,6 +9,17 @@ most 1); AdamW (betas 0.9/0.999, eps 1e-8, decoupled weight decay 0.01) with
 the learning rate set each update. Gradient-norm telemetry reads the clipped
 gradients.
 
+The learning rate, clip range and entropy coefficient of an update are
+``PPOUpdate.schedule``, three float32 values on the device, as the JAX
+package's fused loop holds them (``set_schedule`` fills it; ``run`` reads
+it), so that one update is a body that a CUDA graph can replay with other
+values (``training/fused.py``). On CUDA the optimizer is AdamW with
+``capturable=True``, which takes the learning rate as that device tensor;
+its bias correction is computed on the device and differs from the
+non-capturable one's in the last bits. The CPU keeps the non-capturable
+AdamW (PyTorch refuses a capturable one for CPU parameters), with the
+float32 learning rate as a number.
+
 The memory windows come from (pre-rollout snapshot, tape) by index math, in
 one of two ways, as ``use_pallas_attention`` says:
 
@@ -76,9 +87,11 @@ STAT_NAMES = ("policy_loss", "value_loss", "loss", "entropy", "kl",
 
 
 def make_optimizer(model: torch.nn.Module) -> torch.optim.Optimizer:
-    """AdamW over all parameters; the learning rate is set each update."""
+    """AdamW over all parameters, capturable on CUDA; the learning rate is
+    set each update."""
+    cuda = next(model.parameters()).device.type == "cuda"
     return torch.optim.AdamW(model.parameters(), lr=0.0, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=0.01)
+                             eps=1e-8, weight_decay=0.01, capturable=cuda)
 
 
 def clip_grads_torch(model: torch.nn.Module, max_norm: float) -> torch.Tensor:
@@ -109,7 +122,7 @@ def grad_norm_groups(model: ActorCriticModel) -> Dict[str, torch.Tensor]:
     return {k: v.sqrt() for k, v in groups.items()}
 
 
-def loss_from_outputs(logits, value, mb, clip_range: float, beta: float,
+def loss_from_outputs(logits, value, mb, clip_range, beta,
                       value_loss_coefficient: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """PPO loss and its stats vector (``STAT_NAMES``) for the samples of
@@ -117,7 +130,8 @@ def loss_from_outputs(logits, value, mb, clip_range: float, beta: float,
     of it on one device): the advantages are normalised with the global
     minibatch's ``mb["adv_mean"]`` and ``mb["adv_std"]``, and every mean is
     the part's sum over the global count, so the parts' losses and stats add
-    up to the global minibatch's."""
+    up to the global minibatch's. ``clip_range`` and ``beta`` are numbers or
+    0-d float32 tensors on the device (``PPOUpdate.schedule``)."""
     log_probs, entropies = distributions.log_probs_and_entropies(
         logits, mb["actions"])
     adv = mb["advantages"]
@@ -193,11 +207,14 @@ class PPOUpdate:
         self.index_table = torch.as_tensor(
             build_memory_indices(max_episode_steps, L), device=device)
         self.optimizer = make_optimizer(model)
+        # (learning rate, clip range, beta) of the update: set_schedule fills
+        # it, run reads it.
+        self.schedule = torch.zeros(3, device=device)
 
     # --- losses: (mb, per-worker memory, its slots, clip, beta) -----------
 
-    def loss_timeline(self, mb, timeline, timeline_slots, clip_range: float,
-                      beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    def loss_timeline(self, mb, timeline, timeline_slots, clip_range,
+                      beta) -> Tuple[torch.Tensor, torch.Tensor]:
         """Projects the timeline once, then each block's attention reads its
         windows from it through the window-attention op."""
         trx = self.config.transformer
@@ -219,8 +236,8 @@ class PPOUpdate:
         return loss_from_outputs(logits, value, mb, clip_range, beta,
                                  self.config.value_loss_coefficient)
 
-    def loss_gathered(self, mb, src, src_slots, clip_range: float,
-                      beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    def loss_gathered(self, mb, src, src_slots, clip_range,
+                      beta) -> Tuple[torch.Tensor, torch.Tensor]:
         """Projects the sources once, then gathers each sample's projected
         K/V window from them."""
         k_src, v_src = self.model.project_memory(src, src_slots)
@@ -231,8 +248,8 @@ class PPOUpdate:
         return loss_from_outputs(logits, value, mb, clip_range, beta,
                                  self.config.value_loss_coefficient)
 
-    def loss_window(self, mb, src, src_slots, clip_range: float,
-                    beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    def loss_window(self, mb, src, src_slots, clip_range,
+                    beta) -> Tuple[torch.Tensor, torch.Tensor]:
         """The model on each sample's raw memory window, gathered from the
         sources (projections inside the model)."""
         del src_slots  # the window's slots are mb["slot"]
@@ -242,7 +259,7 @@ class PPOUpdate:
         return loss_from_outputs(logits, value, mb, clip_range, beta,
                                  self.config.value_loss_coefficient)
 
-    def loss(self, mb, memory, memory_slots, clip_range: float, beta: float
+    def loss(self, mb, memory, memory_slots, clip_range, beta
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The config's loss: ``loss_timeline`` with
         ``use_pallas_attention``, else ``loss_gathered``."""
@@ -329,12 +346,33 @@ class PPOUpdate:
         mb.update(adv_mean=adv.mean(), adv_std=adv.std(), n_global=adv.numel())
         return mb
 
-    def __call__(self, batch: RolloutBatch, learning_rate: float,
-                 clip_range: float, beta: float,
+    def set_schedule(self, learning_rate, clip_range, beta) -> None:
+        """Fills ``schedule`` (each value a number or a 0-d tensor on the
+        device, rounded to float32) on the device's stream: no host sync."""
+        for slot, value in zip(self.schedule, (learning_rate, clip_range,
+                                               beta)):
+            slot.fill_(value)
+
+    def load_optimizer_state(self, state: Dict) -> None:
+        """Loads an optimizer ``state_dict`` written on either device: the
+        groups keep this optimizer's ``capturable``, which places the step
+        counts (on the parameters' device when capturable)."""
+        state = dict(state, param_groups=[
+            dict(saved, capturable=group["capturable"]) for saved, group in
+            zip(state["param_groups"], self.optimizer.param_groups)])
+        self.optimizer.load_state_dict(state)
+
+    def __call__(self, batch: RolloutBatch, learning_rate, clip_range, beta,
                  perms: Optional[torch.Tensor] = None):
-        """Runs epochs x minibatches. ``perms`` (epochs, B) overrides the
-        generator's permutations. Returns (mean stats (6,), mean grad-norm
-        groups), as tensors on the device."""
+        """``set_schedule``, then ``run``."""
+        self.set_schedule(learning_rate, clip_range, beta)
+        return self.run(batch, perms)
+
+    def run(self, batch: RolloutBatch, perms: Optional[torch.Tensor] = None):
+        """Runs epochs x minibatches with the values of ``schedule``.
+        ``perms`` (epochs, B) overrides the generator's permutations.
+        Returns (mean stats (6,), mean grad-norm groups), as tensors on the
+        device. On one device nothing here waits for the device."""
         cfg = self.config
         B = cfg.batch_size
         memory, memory_slots, fields = self.prepare(batch)
@@ -345,8 +383,11 @@ class PPOUpdate:
                 for _ in range(cfg.epochs)])
         mb_indices = perms.to(device).reshape(
             cfg.epochs * cfg.n_mini_batch, cfg.mini_batch_size)
+        learning_rate, clip_range, beta = self.schedule.unbind()
         for group in self.optimizer.param_groups:
-            group["lr"] = learning_rate
+            # A capturable AdamW reads the device tensor in its step.
+            group["lr"] = (learning_rate if group["capturable"]
+                           else float(learning_rate))
 
         # The advantages of all workers, in the global sample order, and this
         # rank's part of each minibatch (on one device, all of it).
@@ -373,7 +414,7 @@ class PPOUpdate:
         return stats_sum / n, {k: v / n for k, v in groups_sum.items()}
 
     def _backward(self, fields, local_idx, global_adv, memory, memory_slots,
-                  clip_range: float, beta: float) -> torch.Tensor:
+                  clip_range, beta) -> torch.Tensor:
         """This rank's part of one global minibatch (``local_idx``, possibly
         empty under a mesh; ``global_adv`` all its advantages): the backward
         of its part of the loss, then, under a mesh, one all-reduce of the

@@ -3,19 +3,29 @@
 ``PPOTrainer(config, run_id, device)`` builds the env, the model, the rollout
 and the update on ``device`` (a host env, one with ``reset_all``, gets the
 host rollout of ``training/host_rollout.py``); ``train_one_update`` runs one
-rollout and one PPO update; ``run_training`` runs ``config.updates`` of
+rollout and one PPO update; ``train_chunk(k)`` runs k of them as one fused
+launch (``training/fused.py``); ``run_training`` runs ``config.updates`` of
 them, saves a full checkpoint every ``checkpoint_interval`` updates and the
 final model as ``<checkpoint_dir>/<run_id>.nn``; ``resume_from_checkpoint``
 restores the latest checkpoint of the run.
 
-What the JAX package runs as fused device programs (``training/fused.py``)
-has no counterpart: PyTorch runs eagerly. The loss and kernel choice is this
-trainer's (``config.use_pallas_attention``, ``config.pallas_backward``, and
-the keyword ``grouped`` for the grouped pair), not a module global:
-``pallas_backward`` without ``use_pallas_attention`` warns and takes the
-gathered-window loss, as in the JAX package. Each update's rollout and PPO
-update are the spans ``rollout`` and ``ppo_update`` of a profiler trace
-(``utils/profiling.py``).
+As in the JAX package, ``run_training`` runs a device env's updates in
+chunks of k = min(``updates_per_launch``, the updates left, the updates to
+the next checkpoint) when ``updates_per_launch`` > 1, so checkpoints fall at
+chunk boundaries, and prints each update's line after its chunk. A host env
+runs update by update. The steady env-steps/s leaves out the whole first
+launch and is there only when there was more than one launch. The fused
+launch's route (``fused_route``: a CUDA graph of one update, replayed, or
+the same chunks run eagerly on the CPU, under a mesh or under
+``--debug-nans``) is printed at the first chunk.
+
+The loss and kernel choice is this trainer's (``config.use_pallas_attention``,
+``config.pallas_backward``, and the keyword ``grouped`` for the grouped
+pair), not a module global: ``pallas_backward`` without
+``use_pallas_attention`` warns and takes the gathered-window loss, as in the
+JAX package. Each eager update's rollout and PPO update are the spans
+``rollout`` and ``ppo_update`` of a profiler trace (``utils/profiling.py``);
+on the graph route a chunk is the span ``fused_chunk``.
 
 ``compute_dtype: bfloat16`` and ``obs_uint8`` train on either rollout,
 except ``obs_uint8`` with a host env, which ``HostRolloutFn`` refuses. Under
@@ -37,6 +47,7 @@ any ``num_devices`` that divides W.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import warnings
@@ -49,13 +60,13 @@ import torch
 from ..config import TrainConfig
 from ..envs.factory import create_env
 from ..models.actor_critic import ActorCriticModel
-from ..parallel.mesh import (DataMesh, check_replicated, gather_worker_tree,
-                             replicate_tree, shard_worker_tree)
+from ..parallel.mesh import (DataMesh, gather_worker_tree, replicate_tree,
+                             shard_worker_tree)
 from ..utils.profiling import annotate
-from ..utils.runtime import (debug_nans_enabled, name_modules, nan_errors,
-                             resolve_device)
+from ..utils.runtime import debug_nans_enabled, name_modules, resolve_device
 from . import metrics as metrics_lib
 from .checkpoint import Checkpointer, save_model
+from .fused import ChunkOutputs, FusedTrainLoop, choose_route, run_update
 from .host_rollout import HostRolloutFn, HostRolloutState
 from .ppo import STAT_NAMES, PPOUpdate
 from .rollout import RolloutFn, RolloutState
@@ -140,6 +151,13 @@ class PPOTrainer:
         self.update_fn = PPOUpdate(config, self.model, self.max_episode_steps,
                                    update_gen, grouped=grouped, mesh=mesh)
         self.rollout_state = self.rollout_fn.init_state()
+        # Fusing updates needs the device rollout, as in the JAX package.
+        self.fused_loop = self.fused_route = self._route_reason = None
+        if not self.is_host_env:
+            self.fused_route, self._route_reason = choose_route(self.device,
+                                                                mesh)
+            self.fused_loop = FusedTrainLoop(self.rollout_fn, self.update_fn,
+                                             self.fused_route, mesh)
 
         self.update = 0
         self.writer = (metrics_lib.MetricsWriter(config.summary_dir, run_id)
@@ -158,76 +176,107 @@ class PPOTrainer:
         return [{k: float(v[ws[i], ts[i]]) for k, v in infos.items()}
                 for i in order]
 
-    def train_one_update(self) -> Dict[str, float]:
+    def _record(self, outs: ChunkOutputs) -> List[Dict[str, float]]:
+        """Logs a launch's updates (host side) from its packed outputs, two
+        device-to-host copies, and counts them."""
+        scalars = outs.scalars.cpu().numpy()        # (k, 6 + G + 2)
+        per_step = outs.per_step.cpu().numpy()      # (k, 1 + I, W, T)
+        n, G = len(STAT_NAMES), len(outs.grad_keys)
+        results = []
+        for row, steps in zip(scalars, per_step):
+            self.episode_infos.extend(self._extract_episode_infos(
+                steps[0].astype(bool),
+                {key: steps[1 + j] for j, key in enumerate(outs.info_keys)}))
+            episode_result = metrics_lib.process_episode_info(
+                list(self.episode_infos))
+            stat_dict = {name: float(row[i])
+                         for i, name in enumerate(STAT_NAMES)}
+            value_mean = float(row[n + G])
+            advantage_mean = float(row[n + G + 1])
+            if self.writer is not None:
+                logged = metrics_lib.training_scalars(
+                    stat_dict, episode_result, value_mean, advantage_mean)
+                for j, key in enumerate(outs.grad_keys):
+                    logged["gradients/" + key] = float(row[n + j])
+                self.writer.write(self.update, logged)
+            result = dict(stat_dict)
+            result.update(episode_result)
+            result["value_mean"] = value_mean
+            result["advantage_mean"] = advantage_mean
+            self.update += 1
+            results.append(result)
+        return results
+
+    def _schedule_values(self, k: int) -> np.ndarray:
+        """(k, 3) float32: (learning rate, clip range, beta) of the next k
+        updates."""
         cfg = self.config
-        lr = cfg.learning_rate_schedule.value(self.update)
-        beta = cfg.beta_schedule.value(self.update)
-        clip_range = cfg.clip_range_schedule.value(self.update)
+        return np.array([[cfg.learning_rate_schedule.value(u),
+                          cfg.clip_range_schedule.value(u),
+                          cfg.beta_schedule.value(u)]
+                         for u in range(self.update, self.update + k)],
+                        np.float32)
 
-        with annotate("rollout"):
-            self.rollout_state, batch = self.rollout_fn(self.rollout_state)
-        with annotate("ppo_update"), nan_errors():
-            stats, grad_info = self.update_fn(batch, lr, clip_range, beta)
-        if self.mesh is not None:
-            check_replicated(list(self.model.parameters()), self.mesh,
-                             f"after update {self.update}")
+    def train_chunk(self, k: int) -> List[Dict[str, float]]:
+        """Runs k updates as one fused launch (``training/fused.py``) and
+        logs them: two device-to-host copies for the chunk."""
+        if self.fused_loop is None:
+            raise RuntimeError("a host env runs update by update: no fused "
+                               "launch")
+        if self.fused_route == "graph" and debug_nans_enabled():
+            raise RuntimeError("--debug-nans was turned on after this trainer "
+                               "chose the graph route; build the trainer "
+                               "with the checks on")
+        if self._route_reason is not None:
+            if self.is_primary:
+                print(f"fused launches: {self.fused_route} route "
+                      f"({self._route_reason})")
+            self._route_reason = None
+        with (annotate("fused_chunk") if self.fused_route == "graph"
+              else contextlib.nullcontext()):
+            self.rollout_state, outs = self.fused_loop(
+                self.rollout_state, self._schedule_values(k))
+        return self._record(outs)
 
-        dones, infos, values, advantages = self._global_rows(batch)
-        self.episode_infos.extend(self._extract_episode_infos(
-            dones.cpu().numpy(), {k: v.cpu().numpy() for k, v in infos.items()}))
-        episode_result = metrics_lib.process_episode_info(
-            list(self.episode_infos))
-        stats = stats.cpu().numpy()
-        stat_dict = {name: float(stats[i]) for i, name in enumerate(STAT_NAMES)}
-        value_mean = float(values.mean())
-        advantage_mean = float(advantages.mean())
-        if self.writer is not None:
-            scalars = metrics_lib.training_scalars(
-                stat_dict, episode_result, value_mean, advantage_mean)
-            for key, value in grad_info.items():
-                scalars["gradients/" + key] = float(value)
-            self.writer.write(self.update, scalars)
-
-        result = dict(stat_dict)
-        result.update(episode_result)
-        result["value_mean"] = value_mean
-        result["advantage_mean"] = advantage_mean
-        self.update += 1
-        return result
-
-    def _global_rows(self, batch):
-        """The dones, episode infos, values and advantages of all workers:
-        the batch's own on one device; under a mesh, every rank's rows
-        gathered in one call (the infos' keys are the union of the ranks'
-        keys: a host env's infos may carry keys only some ranks saw)."""
-        if self.mesh is None:
-            return (batch.dones, batch.episode_infos, batch.values,
-                    batch.advantages)
-        keys = sorted(set().union(*self.mesh.all_gather_object(
-            sorted(batch.episode_infos))))
-        zeros = torch.zeros_like(batch.values)
-        rows = torch.stack([batch.dones.float(), batch.values,
-                            batch.advantages] + [
-            batch.episode_infos.get(k, zeros).float() for k in keys], dim=1)
-        rows = self.mesh.gather_workers(rows, "episode rows")
-        return (rows[:, 0].bool(), {k: rows[:, 3 + i]
-                                    for i, k in enumerate(keys)},
-                rows[:, 1], rows[:, 2])
+    def train_one_update(self) -> Dict[str, float]:
+        """One eager update: the body of a fused launch, run alone."""
+        cfg = self.config
+        self.update_fn.set_schedule(
+            cfg.learning_rate_schedule.value(self.update),
+            cfg.clip_range_schedule.value(self.update),
+            cfg.beta_schedule.value(self.update))
+        self.rollout_state, scalars, per_step, grad_keys, info_keys = (
+            run_update(self.rollout_fn, self.update_fn, self.mesh,
+                       self.rollout_state))
+        return self._record(ChunkOutputs(scalars[None], per_step[None],
+                                         grad_keys, info_keys))[0]
 
     def run_training(self, print_every: int = 1) -> Dict[str, float]:
         cfg = self.config
         start_update = self.update  # > 0 after a resume
         start = time.perf_counter()
-        first_update_end = None
+        # The first launch carries the warm-up (and, on the graph route, the
+        # capture): the steady rate leaves it out, as the JAX package's does.
+        first_launch_end, first_launch_updates = 0.0, 0
         result: Dict[str, float] = {}
         while self.update < cfg.updates:
-            result = self.train_one_update()
-            if first_update_end is None:
+            if cfg.updates_per_launch > 1 and self.fused_loop is not None:
+                k = min(cfg.updates_per_launch, cfg.updates - self.update)
+                if cfg.checkpoint_interval > 0:
+                    k = min(k, cfg.checkpoint_interval
+                            - self.update % cfg.checkpoint_interval)
+                results = self.train_chunk(k)
+            else:
+                results = [self.train_one_update()]
+            if first_launch_updates == 0:
                 self._synchronize()
-                first_update_end = time.perf_counter()
-            if (print_every and self.is_primary
-                    and (self.update - 1) % print_every == 0):
-                print(format_update(self.update - 1, result))
+                first_launch_end = time.perf_counter()
+                first_launch_updates = self.update - start_update
+            for i, result in enumerate(results):
+                update = self.update - len(results) + i
+                if (print_every and self.is_primary
+                        and update % print_every == 0):
+                    print(format_update(update, result))
             if (self.checkpointer is not None
                     and self.update % cfg.checkpoint_interval == 0):
                 self._save_checkpoint()
@@ -236,11 +285,10 @@ class PPOTrainer:
         updates = self.update - start_update
         result["env_steps_per_second"] = (
             updates * self.env_steps_per_update / max(elapsed, 1e-9))
-        if updates > 1:
-            # Without the first update, which carries the warm-up.
+        if updates > first_launch_updates > 0:
             result["env_steps_per_second_steady"] = (
-                (updates - 1) * self.env_steps_per_update
-                / max(time.perf_counter() - first_update_end, 1e-9))
+                (updates - first_launch_updates) * self.env_steps_per_update
+                / max(time.perf_counter() - first_launch_end, 1e-9))
         self._save_model()
         return result
 
@@ -285,7 +333,9 @@ class PPOTrainer:
             return False
         state = self.checkpointer.restore()
         self.model.load_state_dict(state["model"])
-        self.update_fn.optimizer.load_state_dict(state["optimizer"])
+        self.update_fn.load_optimizer_state(state["optimizer"])
+        if self.fused_loop is not None:
+            self.fused_loop.reset()     # the optimizer's state is new tensors
         rs = shard_worker_tree(state["rollout_state"], self.mesh,
                                self.config.n_workers)
         to_dev = lambda t: t.to(self.device)
