@@ -234,26 +234,51 @@ Phases, each printing one line with its seconds:
                 warm-up update and replayed. (a) The MiniGrid flagship with
                 the grouped pair under PyTorch's deterministic algorithms
                 (their NaN fill of new tensors off):
-                an eager trainer's 8 updates and a fused trainer's 2
-                launches of 4 from the same seed must give the same actions
+                an eager trainer's 6 updates and a fused trainer's 2
+                launches of 3 from the same seed must give the same actions
                 and logged values and, after each launch, the same
                 parameters, optimizer state, rollout state and generators,
                 to the bit; B3 and B4 counted 120 times an update on the
                 replays. (d) A
                 trainer resumed from the checkpoint of launch 1 runs launch
                 2 to the same bits. (b) The flagship as its YAML says (the
-                per-sample pair): 2 launches of 4; B1 and B2 counted 960
+                per-sample pair): 2 launches of 3; B1 and B2 counted 720
                 times each, and 120 times each by name in a profiler trace
                 of one replayed update (and its device busy share, beside
                 trainer-busy's eager one); stats finite; update 1's actions
                 equal an eager trainer's. (c) Mystery Path Grid (grouped)
-                and PocMemory: a launch of 4 equal to 4 eager updates to
+                and PocMemory: a launch of 3 equal to 3 eager updates to
                 the bit, deterministic algorithms on. Then Searing
                 Spotlights and masked CartPole must capture and replay (a
                 launch of 2, stats finite). Prints each
                 graph's capture and instantiation seconds, nodes and pool
                 bytes, the first launch's seconds and launch 2's s/update
                 and env-steps/s beside the eager trainer's.
+21. fused-mesh: the graph route under a mesh (training/fused.py's
+                segments, replayed with the collectives between them), on
+                phase 19's two gloo ranks, in the same spawn; its lines
+                follow phase 19's. (a) The flagship with the grouped pair
+                under deterministic algorithms: on each rank 2 launches of
+                2 on the graph route against 2 on the eager route from the
+                same seed (parallel/probe.fused_against_eager): the same
+                actions, logged values and episode infos and, after each
+                launch, parameters, optimizer state, rollout state and
+                generators, to the bit; B3 and B4 counted 240 a launch
+                (120 an update on the replays); the same collectives; the
+                ranks bit-identical. (c) Then rank 1 flips a bit of a
+                parameter after update 1 of a launch of 2: the launch must
+                raise naming update 2. (b) The flagship as its YAML says
+                (the per-sample pair): one launch of 4, update 1 on the
+                one-device run's actions; B1 and B2 counted 480 a rank;
+                update 1 within phase 19's limits of the one-device run;
+                rank 0 traces one more replayed update (its own kernels'
+                busy time in the rollout and the PPO update). Prints each
+                segment's nodes, pool and capture seconds. After phase 20,
+                fused-mesh-rate prints a rank's replayed update beside an
+                eager mesh update and one device's replay (phase 20 (a)).
+                Where the call has two or more cards, data-parallel-scaling
+                also runs the graph route at N = 1, 2 and 4 (two launches
+                of 2; the steady env-steps/s of launch 2).
 No window-attention kernel may launch in phases 10-14. The flagship phase
 (4) also prints flagship-mfu: the FLOPs of a PPO update (counted_flops of
 one minibatch's forward and backward, plus window_attention_flops for the
@@ -897,19 +922,10 @@ def _finite_csv(path: str) -> int:
 
 def _assert_same(a, b, where: str) -> None:
     """Bit-for-bit equality of nested dicts/lists of tensors and values."""
-    if isinstance(a, torch.Tensor):
-        if not torch.equal(a.cpu(), b.cpu()):
-            raise RuntimeError(f"{where} differs")
-    elif isinstance(a, dict):
-        if set(a) != set(b):
-            raise RuntimeError(f"{where}: the keys differ")
-        for k in a:
-            _assert_same(a[k], b[k], f"{where}/{k}")
-    elif isinstance(a, (list, tuple)):
-        for i, (x, y) in enumerate(zip(a, b, strict=True)):
-            _assert_same(x, y, f"{where}/{i}")
-    elif a != b:
-        raise RuntimeError(f"{where} differs ({a} vs {b})")
+    from etmppo_tpu_torch.parallel.probe import differences
+    found = differences(a, b, where)
+    if found:
+        raise RuntimeError(found[0])
 
 
 def run_mysterypath(device, k) -> list:
@@ -2605,14 +2621,27 @@ def run_data_parallel(device, k) -> list:
         # own all the same, and hold_rows holds those to one device's.
         replay = probe.Replay(reset=None, actions=one["batch"]["actions"],
                               perms=None)
-        runs = [(flagship, dict(run_id="dp", updates=DP_UPDATES,
-                                batch_fields=fields, timed_collectives=True,
-                                save_model=True, device=device,
-                                replay=replay)),
-                (mortar, dict(run_id="dpmmg", grouped=True, updates=1,
-                              keep_params=False, device=device))]
+        # Then phase 21 on the same ranks: (a) and (c) on the grouped pair,
+        # (b) the per-sample pair, its update 1 on the one-device actions.
+        on_cpu = torch.device(device).type == "cpu"
+        runs = [(probe.train, flagship, dict(
+                    run_id="dp", updates=DP_UPDATES, batch_fields=fields,
+                    timed_collectives=True, save_model=True, device=device,
+                    replay=replay)),
+                (probe.train, mortar, dict(
+                    run_id="dpmmg", grouped=True, updates=1,
+                    keep_params=False, device=device)),
+                (probe.fused_against_eager, flagship, dict(
+                    chunk=FM_CHUNK, chunks=FM_CHUNKS, grouped=True,
+                    deterministic=True, device=device, stand_in=on_cpu,
+                    perturb=(1, 1))),
+                (probe.train, dataclasses.replace(
+                    flagship, updates_per_launch=FM_LAUNCH), dict(
+                    run_id="fmb", updates=FM_LAUNCH, chunk=FM_LAUNCH,
+                    batch_fields=fields, device=device, replay=replay,
+                    trace=True))]
         ranks = spawn(probe.train_runs, DP_RANKS, (runs,), device=device,
-                      backend=backend, timeout=600, collective_timeout=300)
+                      backend=backend, timeout=900, collective_timeout=300)
         spawned_s = time.perf_counter() - t
         dp = [r[0] for r in ranks]
         mmg = [r[1] for r in ranks]
@@ -2666,7 +2695,10 @@ def run_data_parallel(device, k) -> list:
               "grouped: " + ", ".join(
                   f"rank {r['rank']} fwd_grouped {r['launches'][0][NAMES[2]]}"
                   f" bwd_grouped {r['launches'][0][NAMES[3]]}" for r in mmg)
-              + f", bit-identical; {spawned_s:.1f} s for the spawned ranks")
+              + f", bit-identical; {spawned_s:.1f} s for the spawned ranks "
+              "(phase 21's runs included)")
+        fused_mesh = check_fused_mesh([r[2] for r in ranks],
+                                      [r[3] for r in ranks], one, flagship)
     launches = [sum(u[name] for r in dp + mmg for u in r["launches"])
                 for name in NAMES]
     if torch.device(device).type == "cuda" and torch.cuda.device_count() >= 2:
@@ -2674,15 +2706,139 @@ def run_data_parallel(device, k) -> list:
     else:
         print("data-parallel scaling: one card visible; NCCL at N = 2 and 4 "
               "runs only where a call has two or more cards", flush=True)
-    return launches
+    return launches, fused_mesh
+
+
+def segment_line(capture: dict) -> str:
+    """Each captured segment's nodes, pool and seconds."""
+    return ", ".join(
+        f"{name} {c['nodes']} nodes {c['pool_bytes'] / 2**20:.0f} MiB "
+        f"capture {c['capture_s']:.2f}s instantiate {c['instantiate_s']:.2f}s"
+        for name, c in capture.get("segments", {}).items())
+
+
+def check_fused_mesh(grouped: list, per_sample: list, one: dict,
+                     config) -> dict:
+    """Phase 21 on phase 19's ranks (each rank's results of
+    ``probe.fused_against_eager`` and of ``probe.train`` with a ``chunk``).
+    Prints the phase and returns its launches (in the order of NAMES) and a
+    rank's seconds for the rate line."""
+    t = time.perf_counter()
+    W, T = config.n_workers, config.worker_steps
+    n = FM_CHUNK * FM_CHUNKS
+    for rank, r in enumerate(grouped):
+        label = f"fused-mesh rank {rank}"
+        if r["route"] != "graph":
+            raise RuntimeError(f"{label}: the route is {r['route']!r}")
+        if r["mismatches"]:
+            raise RuntimeError(f"{label}: the graph launches differ from the "
+                               "eager mesh updates: "
+                               + "; ".join(r["mismatches"][:8]))
+        want = [[FLAGSHIP_LAUNCHES * FM_CHUNK] * 2] * FM_CHUNKS
+        for route in ("eager", "fused"):
+            if r["launches"][route] != want:
+                raise RuntimeError(f"{label}: B3, B4 counted "
+                                   f"{r['launches'][route]} on the {route} "
+                                   f"route, expected {want}")
+        if r["traffic"]["fused"] != r["traffic"]["eager"]:
+            raise RuntimeError(f"{label}: the collectives differ: "
+                               f"{r['traffic']}")
+        expect = f"after update 2 of {FM_CHUNK} in this launch"
+        if r["raised"] is None or expect not in r["raised"]:
+            raise RuntimeError(f"{label}: the perturbed launch raised "
+                               f"{r['raised']!r}, not {expect!r}")
+    for a, b in zip(grouped[0]["digests"], grouped[1]["digests"]):
+        if not torch.equal(a, b):
+            raise RuntimeError("fused-mesh: the ranks' parameters differ")
+    for rank, r in enumerate(per_sample):
+        check_counts(r["launches"][0], {name: FLAGSHIP_LAUNCHES * FM_LAUNCH
+                                        for name in NAMES[:2]},
+                     f"fused-mesh per-sample rank {rank}")
+        bad = {key: v for res in r["results"] for key, v in res.items()
+               if not math.isfinite(v)}
+        if bad:
+            raise RuntimeError(f"fused-mesh per-sample rank {rank}: "
+                               f"non-finite {bad}")
+    hold_ranks_replicated(per_sample, "fused-mesh per-sample")
+    rows_detail = hold_rows(per_sample, one, W, T)
+    r0 = per_sample[0]
+    bad, detail = read_limits(dict(stats=r0["results"][0],
+                                   first_grads=r0["first_grads"],
+                                   params=r0["first_params"]),
+                              update_one(one), config)
+    if bad:
+        raise RuntimeError("fused-mesh: the per-sample launch's update 1 "
+                           "differs from one device's in " + ", ".join(bad))
+    g = grouped[0]
+    seconds = {route: g["seconds"][route][-1] / FM_CHUNK
+               for route in ("eager", "fused")}
+    phase("fused-mesh", t,
+          f"the flagship on {DP_RANKS} gloo ranks sharing the card, the "
+          "graph route under a mesh (segments replayed, the collectives "
+          "between them): (a) grouped pair, deterministic algorithms: "
+          f"{FM_CHUNKS} launches of {FM_CHUNK} equal {n} eager mesh updates "
+          "to the bit on each rank (actions, logged values, episode infos, "
+          "parameters, optimizer, rollout state, generators), the ranks "
+          "bit-identical, B3 and B4 counted "
+          f"{g['launches']['fused']} a launch ({FLAGSHIP_LAUNCHES} an update "
+          "on the replays), the collectives equal the eager route's "
+          f"({traffic_calls(g['traffic']['fused'])}); rank 0's segments: "
+          f"{segment_line(g['capture'])}; launch seconds graph "
+          + " ".join(f"{x:.2f}" for x in g["seconds"]["fused"])
+          + ", eager " + " ".join(f"{x:.2f}" for x in g["seconds"]["eager"])
+          + f" (a replayed update {seconds['fused']:.3f} s, an eager mesh "
+          f"update {seconds['eager']:.3f} s); (c) rank 1 flipped a bit "
+          f"after update 1 of a launch: the launch raised \"{g['raised']}\";"
+          f" (b) per-sample pair: one launch of {FM_LAUNCH}, B1 and B2 "
+          f"counted {r0['launches'][0][NAMES[0]]} and "
+          f"{r0['launches'][0][NAMES[1]]} a rank, in "
+          f"{r0['seconds']['launch'][0]:.2f} s (warm-up, capture, "
+          f"{FM_LAUNCH - 1} replays; segments {segment_line(r0['capture'])})"
+          f"; {rows_detail}; update 1, ranks / one device: {detail}; rank 0's "
+          "traced replay of one more update (its own kernels; phase 4's "
+          "trainer-busy has one device's): rollout "
+          f"{busy(r0['busy']['rollout'])}, PPO update "
+          f"{busy(r0['busy']['ppo_update'])}")
+    launches = [sum(r["launches"][0][name] for r in per_sample)
+                for name in NAMES[:2]]
+    launches += [sum(c[i] for r in grouped for route in ("eager", "fused")
+                     for c in r["launches"][route]) for i in range(2)]
+    return dict(launches=launches, seconds=seconds)
+
+
+def traffic_calls(traffic: dict) -> str:
+    return ", ".join(f"{label} {rec['calls']} x "
+                     f"{rec['bytes'] / rec['calls'] / 1e6:.3f} MB"
+                     for label, rec in traffic.items() if rec["calls"])
+
+
+def fused_mesh_rate(fused_mesh: dict, one_device: dict, steps: int) -> None:
+    """Phase 21's rate line, after phase 20: a rank's replayed update on
+    the graph route under the mesh beside an eager mesh update and one
+    device's replayed update, all the grouped flagship under deterministic
+    algorithms in this call."""
+    t = time.perf_counter()
+    rates = dict(fused_mesh["seconds"], one_device=one_device["replay_s"])
+    phase("fused-mesh-rate", t, "the flagship, grouped, deterministic, s per "
+          f"update (env-steps/s of its {steps} steps): " + ", ".join(
+              f"{name} {s:.3f} ({steps / s:.0f})" for name, s in (
+                  ("graph route, a rank of 2 on one card", rates["fused"]),
+                  ("eager mesh route, the same", rates["eager"]),
+                  ("one device's graph route (phase 20)",
+                   rates["one_device"])))
+          + "; graph/eager under the mesh "
+          f"{rates['eager'] / rates['fused']:.2f}x (two ranks share one "
+          "card: not a scaling number)")
 
 
 def run_dp_scaling(device, cards: int = 0) -> None:
     """With two or more cards: the flagship at N = 1 (here), 2 and 4 (NCCL,
-    a rank a card, where there are that many), DP_SCALING_UPDATES updates
-    each; prints the steady env-steps/s (updates 2 onward). On the CPU
-    (a rehearsal) the ranks are gloo processes, ``cards`` of them at
-    most."""
+    a rank a card, where there are that many), on the eager route
+    DP_SCALING_UPDATES updates each (the steady env-steps/s of updates 2
+    onward) and on the graph route two launches of FM_CHUNK (the steady
+    env-steps/s of launch 2, replays only). On the CPU (a rehearsal) the
+    ranks are gloo processes, ``cards`` of them at most, and the graph
+    route is left out."""
     from etmppo_tpu_torch.config import MINIGRID_FLAGSHIP, config_from_dict
     from etmppo_tpu_torch.parallel import probe
     from etmppo_tpu_torch.parallel.mesh import spawn
@@ -2716,94 +2872,46 @@ def run_dp_scaling(device, cards: int = 0) -> None:
             steady = steps * (DP_SCALING_UPDATES - 1) / sum(per_update[1:])
             backend = "nccl" if cuda else "gloo"
             detail = f"N={n} ({backend if n > 1 else 'one device'}): " + (
-                "s/update " + " ".join(f"{s:.2f}" for s in per_update)
+                "eager s/update " + " ".join(f"{s:.2f}" for s in per_update)
                 + f"; steady env-steps/s {steady:.0f} (updates 2-"
                 f"{DP_SCALING_UPDATES})")
             if n > 1:
                 detail += "; " + "; ".join(traffic_line(r) for r in ranks)
+            if cuda:
+                kwargs = dict(run_id=f"scalegraph{n}",
+                              updates=FM_CHUNK * 2, chunk=FM_CHUNK,
+                              keep_params=False, device=device)
+                cfg = dataclasses.replace(cfg, updates_per_launch=FM_CHUNK)
+                graph = ([probe.train(None, cfg, **kwargs)] if n == 1 else
+                         spawn(probe.train, n, (cfg,), kwargs=kwargs,
+                               device="cuda", timeout=900,
+                               collective_timeout=300))
+                hold_ranks_replicated(graph, f"scaling N={n} graph")
+                launch = max(r["seconds"]["launch"][1] for r in graph)
+                detail += (f"; graph route: launches " + " ".join(
+                    f"{max(r['seconds']['launch'][i] for r in graph):.2f}"
+                    for i in range(2)) + " s; steady env-steps/s "
+                    f"{steps * FM_CHUNK / launch:.0f} (launch 2)")
             phase("data-parallel-scaling", t, detail)
+
+
+# Phase 21, run on phase 19's ranks: the graph route under a mesh.
+FM_CHUNK = 2                   # (a): launches of 2 ...
+FM_CHUNKS = 2                  # ... two of them, against 4 eager updates
+FM_LAUNCH = 4                  # (b): one launch, the YAMLs' updates_per_launch
 
 
 # --- phase 20: fused launches (training/fused.py) ---------------------------
 
-FUSED_CHUNK = 4                # updates a launch: the YAMLs' updates_per_launch
+# Updates a launch: the YAMLs' updates_per_launch is 4; 3 since phase 21
+# came in, for the script's time.
+FUSED_CHUNK = 3
 FUSED_CHUNKS = 2
 # B1's and B2's CUDA functions, as a profiler trace names them.
 FUSED_KERNEL_NAMES = ("window_attention_fwd_kernel",
                       "window_attention_bwd_kernel")
 # Updates a launch of the configurations held only to run on the graph route.
 FUSED_ROUTE_UPDATES = 2
-
-
-class ActionRecorder:
-    """A trainer's rollout that also keeps each rollout's actions: row n of
-    ``actions`` (rows, W, T, branches) on the device, n a counter there, so
-    that a captured rollout records on every replay too. It draws nothing
-    and changes no value of the rollout's."""
-
-    def __init__(self, rollout_fn, rows: int):
-        self.fn = rollout_fn
-        self.rows = rows
-        self.actions = None
-        self.count = torch.zeros((), dtype=torch.int64,
-                                 device=rollout_fn.device)
-        self._row = torch.arange(rows, device=rollout_fn.device).reshape(
-            -1, 1, 1, 1)
-
-    def __getattr__(self, name):
-        return getattr(self.fn, name)
-
-    def __call__(self, state):
-        final, batch = self.fn(state)
-        if self.actions is None:
-            self.actions = torch.zeros(
-                (self.rows,) + tuple(batch.actions.shape),
-                dtype=batch.actions.dtype, device=batch.actions.device)
-        self.actions.copy_(torch.where(self._row == self.count,
-                                       batch.actions[None], self.actions))
-        self.count += 1
-        return final, batch
-
-
-def record_actions(trainer, rows: int) -> ActionRecorder:
-    recorder = ActionRecorder(trainer.rollout_fn, rows)
-    trainer.rollout_fn = recorder
-    trainer.fused_loop.rollout_fn = recorder
-    return recorder
-
-
-@contextlib.contextmanager
-def deterministic_algorithms():
-    """PyTorch's deterministic algorithms (warn only) and cuDNN's
-    deterministic mode, as the determinism phase sets them, without their
-    NaN fill of every new tensor: the fill adds some 40% of a graph's nodes
-    and of an eager update's seconds, and changes no value compared here
-    (a read of memory never written would differ between the graph's pool
-    and an eager allocation, and fail the comparison)."""
-    import torch.utils.deterministic as det
-    flags = (torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled(),
-             torch.backends.cudnn.deterministic, det.fill_uninitialized_memory)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic = True
-    det.fill_uninitialized_memory = False
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
-        torch.backends.cudnn.deterministic = flags[2]
-        det.fill_uninitialized_memory = flags[3]
-
-
-def cpu_tree(tree):
-    """A copy on the host of nested dicts, lists and tensors."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().clone()
-    if isinstance(tree, dict):
-        return {k: cpu_tree(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(cpu_tree(v) for v in tree)
-    return tree
 
 
 def same_results(eager: list, fused: list, label: str) -> None:
@@ -2898,6 +3006,8 @@ def fused_against_eager(raw: dict, tmp: str, name: str, device, grouped: bool,
     ``per_update`` (name -> launches) of each kernel an update. The fused
     trainer saves a checkpoint after its first launch. Returns the two
     trainers' numbers."""
+    from etmppo_tpu_torch.parallel.probe import (
+        cpu_tree, deterministic_algorithms, record_actions)
     n = chunks * FUSED_CHUNK
     out: dict = {}
     with deterministic_algorithms():
@@ -2965,6 +3075,8 @@ def run_fused(device, k) -> list:
     from etmppo_tpu_torch.config import (CARTPOLE_MASKED, MINIGRID_FLAGSHIP,
                                          MYSTERY_PATH_GRID, POC_MEMORY,
                                          SEARING_SPOTLIGHTS)
+    from etmppo_tpu_torch.parallel.probe import (deterministic_algorithms,
+                                                 record_actions)
     t = time.perf_counter()
     for kernel in k.values():
         kernel.launches = 0
@@ -3005,7 +3117,8 @@ def run_fused(device, k) -> list:
                 resumed.close()
         phase("fused-resume", t,
               f"resumed at update {FUSED_CHUNK} from launch 1's checkpoint;"
-              " launch 2 (its update 5 eager, then a new capture) equals the "
+              f" launch 2 (its update {FUSED_CHUNK + 1} eager, then a new "
+              "capture) equals the "
               "uninterrupted run's to the bit")
 
         # (b) the flagship as its YAML says: the per-sample pair.
@@ -3116,7 +3229,8 @@ def run_fused(device, k) -> list:
         phase("fused-routes", t,
               f"a launch of {FUSED_ROUTE_UPDATES} (an eager update, then a "
               "replay) on the graph route, stats finite: " + "; ".join(lines))
-    return [k[name].launches for name in NAMES]
+    one_device = dict(replay_s=a["chunk_s"][1] / FUSED_CHUNK)
+    return [k[name].launches for name in NAMES], one_device
 
 
 def update_mfu(trainer, batch, update_s: float) -> str:
@@ -3245,9 +3359,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["debug_nans"] = run_debug_nans(device, k)
     torch.cuda.empty_cache()
-    launches["data_parallel"] = run_data_parallel(device, k)
+    launches["data_parallel"], fused_mesh = run_data_parallel(device, k)
+    launches["fused_mesh"] = fused_mesh["launches"]
     torch.cuda.empty_cache()
-    launches["fused"] = run_fused(device, k)
+    launches["fused"], one_device = run_fused(device, k)
+    from etmppo_tpu_torch.config import MINIGRID_FLAGSHIP
+    fused_mesh_rate(fused_mesh, one_device,
+                    MINIGRID_FLAGSHIP["n_workers"]
+                    * MINIGRID_FLAGSHIP["worker_steps"])
     check_float32("before the result line")
 
     entries = []

@@ -14,17 +14,20 @@ the JAX package's GSPMD run over its 1-D ``("data",)`` mesh is:
   rows, so a rank's workers see what they see on one device.
 * The update moves gradients, not samples (``training/ppo.py``): every rank
   draws the same global permutation, takes the samples of each global
-  minibatch whose worker is its own, and computes its part of the global
-  minibatch's loss. One ``all_reduce`` a minibatch over one flat buffer
-  (``all_reduce_flat``) sums the gradients and the stats; every rank then
-  clips and steps alike.
+  minibatch whose worker is its own, padded to a fixed size, and computes
+  its part of the global minibatch's loss. One ``all_reduce`` a minibatch
+  over one flat buffer at a fixed address (``flat_views``: every gradient
+  is a view of it, the six stats follow) sums the gradients and the stats;
+  every rank then clips and steps alike.
 
 The ranks' parameters stay bit-identical because every rank applies the
 same clipping and AdamW step to the same summed gradients, and the sum is
 the same on every rank: gloo's and NCCL's ring and tree reductions reduce
 each element once and hand the result to every rank (with two ranks
-``a + b == b + a`` whatever the algorithm). The trainer checks it after
-every update (``check_replicated``) and raises if it ever fails.
+``a + b == b + a`` whatever the algorithm). Every update writes a digest of
+the parameters (``replica_digest``); the trainer gathers a launch's digests
+at its end (``check_replicated``) and raises, naming the first update whose
+digests differ, if it ever fails.
 
 A group runs ``nccl`` on CUDA devices, one card a rank, and ``gloo`` on the
 CPU, unless the caller names the backend. ``gloo`` also takes CUDA tensors
@@ -93,6 +96,9 @@ class DataMesh:
     @contextlib.contextmanager
     def _count(self, label: str, nbytes: int):
         sync = self.timed and self.device.type == "cuda"
+        if sync and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a timed collective synchronises the device, "
+                               "which a CUDA graph capture refuses")
         if sync:
             torch.cuda.synchronize(self.device)
         start = time.perf_counter()
@@ -119,16 +125,18 @@ class DataMesh:
             dist.broadcast(t, src)
         return t
 
-    def gather_workers(self, t: torch.Tensor, label: str = "gather"
-                       ) -> torch.Tensor:
+    def gather_workers(self, t: torch.Tensor, label: str = "gather",
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Every rank's ``t`` (its block of a worker-leading tensor, the same
         shape on every rank) concatenated in rank order: the global
-        tensor, on every rank."""
+        tensor, on every rank; written into ``out`` where given (a buffer
+        at a fixed address, as a replayed CUDA graph reads it)."""
         if t.dtype == torch.bool:
             return self.gather_workers(t.to(torch.uint8), label).bool()
         t = t.contiguous()
-        out = torch.empty((t.shape[0] * self.size,) + tuple(t.shape[1:]),
-                          dtype=t.dtype, device=t.device)
+        if out is None:
+            out = torch.empty((t.shape[0] * self.size,) + tuple(t.shape[1:]),
+                              dtype=t.dtype, device=t.device)
         with self._count(label, out.numel() * out.element_size()):
             dist.all_gather(list(out.chunk(self.size)), t)
         return out
@@ -231,18 +239,19 @@ def replicate_tree(tree: Any, mesh: Optional[DataMesh]) -> Any:
     return tree
 
 
-def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh: DataMesh,
-                    label: str = "all_reduce") -> List[torch.Tensor]:
-    """Sums every tensor of ``tensors`` over the ranks in ONE ``all_reduce``
-    of one flat buffer; returns views of the summed buffer, in the tensors'
-    shapes."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    mesh.all_reduce_(flat, label)
-    out, offset = [], 0
+def flat_views(tensors: Sequence[torch.Tensor], extra: int = 0):
+    """One zeroed flat float32 buffer of the tensors' elements and ``extra``
+    more, on the first tensor's device, and views of it in the tensors'
+    shapes: tensors that live in the views are summed over the ranks by ONE
+    ``all_reduce`` of the buffer, which stays at its address, as a replayed
+    CUDA graph needs. Returns (buffer, views)."""
+    flat = torch.zeros(sum(t.numel() for t in tensors) + extra,
+                       device=tensors[0].device)
+    views, offset = [], 0
     for t in tensors:
-        out.append(flat[offset:offset + t.numel()].view_as(t))
+        views.append(flat[offset:offset + t.numel()].view(t.shape))
         offset += t.numel()
-    return out
+    return flat, views
 
 
 def replica_digest(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -254,14 +263,20 @@ def replica_digest(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack([bits.sum(), (bits * weight).sum()])
 
 
-def check_replicated(tensors: Sequence[torch.Tensor], mesh: DataMesh,
-                     where: str) -> None:
-    """Raises unless every rank holds the same bits in ``tensors``."""
-    digests = mesh.gather_workers(replica_digest(tensors)[None],
-                                  "replica check").cpu()
-    if not bool((digests == digests[0]).all()):
-        raise RuntimeError(f"the ranks' parameters differ {where}: digests "
-                           f"{digests.tolist()}")
+def check_replicated(digests: torch.Tensor, mesh: DataMesh) -> None:
+    """Raises unless every rank wrote the same ``digests`` (K, 2), one
+    ``replica_digest`` of the parameters after each update of a launch,
+    naming the first update whose digests differ. One gather and one host
+    read."""
+    K = digests.shape[0]
+    every = mesh.gather_workers(digests, "replica check").cpu().reshape(
+        mesh.size, K, 2)
+    differ = (every != every[0]).any(dim=2).any(dim=0)
+    if bool(differ.any()):
+        k = int(differ.nonzero()[0])
+        raise RuntimeError(
+            f"the ranks' parameters differ after update {k + 1} of {K} in "
+            f"this launch: digests by rank {every[:, k].tolist()}")
 
 
 # --- starting the ranks -------------------------------------------------------

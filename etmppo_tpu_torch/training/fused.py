@@ -11,45 +11,67 @@ state (``RolloutState``) in fixed buffers, which the body writes back with
 as ``PPOUpdate.schedule``, three float32 values on the device; the outputs
 in fixed buffers. A chunk runs that body K times, in one of two routes:
 
-* ``graph`` (one CUDA device): the loop's first update runs eagerly on the
-  capture stream as the warm-up (cuDNN and cuBLAS handles, the kernels'
+* ``graph`` (CUDA): the loop's first update runs eagerly on the capture
+  stream as the warm-up (cuDNN and cuBLAS handles, the kernels'
   shared-memory attributes, AdamW's lazily created state); right after it,
-  in the same launch, ``torch.cuda.graph`` captures the body once, so the
-  first launch carries the warm-up and the capture as the JAX package's
-  carries the compilation. Every later update copies its row of the
-  chunk's (K, 3) schedule into ``PPOUpdate.schedule``, replays the graph
-  and copies the output buffers into row k of the chunk's outputs on the
-  device. Nothing inside a chunk waits for the device. The rollout's and
-  the update's generators are registered with the graph, so a replay draws
-  what an eager update would and advances them as far (``get_state`` shows
-  it, and checkpoints save it). A capture or a replay that fails raises.
-  Nothing in the body may copy host data to the device or wait for it.
-* ``eager``: the same body run K times, taken on the CPU (no CUDA graphs),
-  under a mesh (``PPOUpdate.rank_minibatches`` sizes each rank's part on the
-  host, and gloo is not capturable) and under ``--debug-nans`` (its checks
-  run on the host). ``choose_route`` says which and why.
+  in the same launch, the update is captured, so the first launch carries
+  the warm-up and the capture as the JAX package's carries the
+  compilation. Every later update copies its row of the chunk's (K, 3)
+  schedule into ``PPOUpdate.schedule``, replays and copies the output
+  buffers into row k of the chunk's outputs on the device. Nothing inside a
+  chunk waits for the device. The generators that a capture draws from are
+  registered with its graph, so a replay draws what an eager update would
+  and advances them as far (``get_state`` shows it, and checkpoints save
+  it). A capture or a replay that fails raises. Nothing in the body may
+  copy host data to the device or wait for it.
+
+  On one device the capture is one CUDA graph of the whole update. Under a
+  mesh a capture cannot hold a collective (gloo's least of all, which
+  copies through the host), so ``mesh_update`` runs the update as segments
+  that share one memory pool, with the collectives run eagerly between
+  their replays, on the replays' stream (NCCL's stream and gloo's copies
+  wait for it): ``rollout`` (the rollout and GAE, and the rows of this
+  rank's dones, values, advantages and episode infos packed), the one
+  gather of those rows of all workers, ``prepare`` (``PPOUpdate``: the
+  loss's inputs, the permutations, this rank's padded parts), then per
+  minibatch ``part`` (its forward and backward into the flat gradient
+  buffer), the all-reduce of that buffer and ``step`` (clip, gradient-norm
+  groups, AdamW), then ``result`` and ``outputs`` (the chunk's rows, the
+  parameters' replica digest, the rollout state written back). ``part``
+  and ``step`` are captured once and replayed epochs x minibatches times; a
+  device counter picks the minibatch. Tensors that pass from one segment to
+  the next stay where the capture put them. The info keys are fixed at the
+  warm-up (a device env's are static; a change raises).
+* ``eager``: the same body run K times, taken on the CPU (no CUDA graphs)
+  and under ``--debug-nans`` (its checks run on the host). ``choose_route``
+  says which and why.
 
 Either way a chunk is K calls of ``PPOTrainer.train_one_update``: the same
-draws, the same arithmetic, the same logged values.
+draws, the same arithmetic, the same logged values. Under a mesh every
+update writes its parameters' ``replica_digest`` into row k of a (K, 2)
+buffer, and the chunk's end gathers them once and raises naming the first
+update whose digests differ between the ranks (``check_replicated``).
 
 The window-attention wrappers count their launches in Python, which a
-replay does not run. The loop takes each kernel's launches during the
+replay does not run. The loop takes each kernel's launches during a
 capture, takes them back afterwards (a capture runs nothing), and adds them
-at every replay, so the counts stay the number of kernels that ran.
+at every replay, so the counts stay the number of kernels that ran. The
+collectives run between the replays, so the mesh's traffic counts are true.
 """
 from __future__ import annotations
 
 import ctypes
 import time
+import types
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..parallel.mesh import DataMesh, check_replicated
+from ..parallel.mesh import DataMesh, check_replicated, replica_digest
 from ..utils.profiling import annotate
 from ..utils.runtime import debug_nans_enabled, nan_errors
-from .ppo import PPOUpdate
+from .ppo import PPOUpdate, Segments
 from .rollout import RolloutBatch, RolloutFn, RolloutState
 
 
@@ -71,31 +93,21 @@ def choose_route(device: torch.device, mesh: Optional[DataMesh]
     """The route of a trainer's fused launches on ``device``, and why."""
     if device.type != "cuda":
         return "eager", "the CPU has no CUDA graphs"
-    if mesh is not None:
-        return "eager", ("under a mesh: each rank's part of a minibatch is "
-                         "sized on the host, and gloo is not capturable")
     if debug_nans_enabled():
         return "eager", "--debug-nans checks the values on the host"
+    if mesh is not None:
+        return "graph", ("CUDA graphs of an update's segments, replayed, "
+                         "with the collectives between them")
     return "graph", "one CUDA graph of a whole update, replayed"
 
 
-def global_rows(batch: RolloutBatch, mesh: Optional[DataMesh]):
-    """The dones, episode infos, values and advantages of all workers: the
-    batch's own on one device; under a mesh, every rank's rows gathered in
-    one call (the infos' keys are the union of the ranks' keys: a host env's
-    infos may carry keys only some ranks saw)."""
-    if mesh is None:
-        return (batch.dones, batch.episode_infos, batch.values,
-                batch.advantages)
-    keys = sorted(set().union(*mesh.all_gather_object(
-        sorted(batch.episode_infos))))
+def episode_rows(batch: RolloutBatch, keys: Tuple[str, ...]) -> torch.Tensor:
+    """(workers, 3 + I, T): the batch's dones, values, advantages and the
+    episode infos of ``keys`` (zeros for a key the batch lacks)."""
     zeros = torch.zeros_like(batch.values)
-    rows = torch.stack([batch.dones.float(), batch.values,
+    return torch.stack([batch.dones.float(), batch.values,
                         batch.advantages] + [
         batch.episode_infos.get(k, zeros).float() for k in keys], dim=1)
-    rows = mesh.gather_workers(rows, "episode rows")
-    return (rows[:, 0].bool(), {k: rows[:, 3 + i] for i, k in enumerate(keys)},
-            rows[:, 1], rows[:, 2])
 
 
 def state_tensors(state: RolloutState) -> List[torch.Tensor]:
@@ -106,27 +118,90 @@ def state_tensors(state: RolloutState) -> List[torch.Tensor]:
 
 def run_update(rollout_fn: RolloutFn, update_fn: PPOUpdate,
                mesh: Optional[DataMesh], state):
-    """One update from ``state`` with the values of ``update_fn.schedule``:
-    the rollout (the spans ``rollout`` and ``ppo_update`` of a profiler
-    trace), the PPO update and, under a mesh, the replica check. Returns
-    the rollout state after it, its scalars (6 + G + 2,) and its per-step
-    rows (1 + I, W, T), packed as ``ChunkOutputs``' rows, and their grad and
-    info keys."""
+    """One update from ``state`` with the values of ``update_fn.schedule``,
+    run at once: the rollout (the spans ``rollout`` and ``ppo_update`` of a
+    profiler trace) and the PPO update; under a mesh ``mesh_update``.
+    Returns the rollout state after it, its scalars (6 + G + 2,) and its
+    per-step rows (1 + I, W, T), packed as ``ChunkOutputs``' rows, their
+    grad and info keys, and under a mesh the parameters' replica digest
+    (None on one device)."""
+    if mesh is not None:
+        return mesh_update(rollout_fn, update_fn, mesh, state, Segments(),
+                           mesh_slots())
     with annotate("rollout"):
         final, batch = rollout_fn(state)
     with annotate("ppo_update"), nan_errors():
         stats, grad_info = update_fn.run(batch)
-    if mesh is not None:
-        check_replicated(list(update_fn.model.parameters()), mesh,
-                         "after an update")
-    dones, infos, values, advantages = global_rows(batch, mesh)
-    grad_keys, info_keys = tuple(sorted(grad_info)), tuple(sorted(infos))
+    grad_keys = tuple(sorted(grad_info))
+    info_keys = tuple(sorted(batch.episode_infos))
     scalars = torch.cat([
         stats, torch.stack([grad_info[k] for k in grad_keys]),
-        values.mean()[None], advantages.mean()[None]])
-    per_step = torch.stack([dones.float()]
-                           + [infos[k].float() for k in info_keys])
-    return final, scalars, per_step, grad_keys, info_keys
+        batch.values.mean()[None], batch.advantages.mean()[None]])
+    per_step = torch.stack([batch.dones.float()]
+                           + [batch.episode_infos[k].float()
+                              for k in info_keys])
+    return final, scalars, per_step, grad_keys, info_keys, None
+
+
+def mesh_slots() -> types.SimpleNamespace:
+    """Where ``mesh_update`` keeps the tensors that pass from one segment
+    to the next, and the info keys once fixed."""
+    return types.SimpleNamespace(info_keys=None, global_rows=None)
+
+
+def mesh_update(rollout_fn, update_fn: PPOUpdate, mesh: DataMesh, state,
+                segments: Segments, slots: types.SimpleNamespace,
+                write_back: bool = False):
+    """One update of this rank under a mesh, as segments and collectives
+    (the module's docstring), run through ``segments``; ``slots`` keeps
+    what passes between them. Without fixed info keys, the keys are the
+    union of the ranks' (a host env's infos may carry keys only some ranks
+    saw), gathered on the host, and become fixed. With ``write_back`` the
+    rollout state after the update is copied into ``state``'s tensors and
+    ``state`` is returned. Returns what ``run_update`` returns."""
+    def rollout():
+        slots.final, slots.batch = rollout_fn(state)
+        if slots.info_keys is not None:
+            keys = tuple(sorted(slots.batch.episode_infos))
+            if keys != slots.info_keys:
+                raise RuntimeError(f"the episode info keys changed from "
+                                   f"{slots.info_keys} to {keys}")
+            slots.rows = episode_rows(slots.batch, slots.info_keys)
+    with annotate("rollout"):
+        segments.segment("rollout", rollout, (rollout_fn.generator,))
+    if slots.info_keys is None:
+        slots.info_keys = tuple(sorted(set().union(*mesh.all_gather_object(
+            sorted(slots.batch.episode_infos)))))
+        slots.rows = episode_rows(slots.batch, slots.info_keys)
+
+    def gather():
+        # The rows of all workers, in one device's order: the advantages
+        # for the update's statistics, the rest for the log.
+        slots.global_rows = mesh.gather_workers(slots.rows, "advantages",
+                                                out=slots.global_rows)
+    segments.collective(gather)
+    with annotate("ppo_update"), nan_errors():
+        stats, grad_info = update_fn.run(
+            slots.batch, advantages=slots.global_rows[:, 2],
+            segments=segments)
+    grad_keys = tuple(sorted(grad_info))
+
+    def outputs():
+        rows = slots.global_rows
+        slots.scalars = torch.cat([
+            stats, torch.stack([grad_info[k] for k in grad_keys]),
+            rows[:, 1].mean()[None], rows[:, 2].mean()[None]])
+        slots.per_step = torch.stack(
+            [rows[:, 0]] + [rows[:, 3 + i]
+                            for i in range(len(slots.info_keys))])
+        slots.digest = replica_digest(list(update_fn.model.parameters()))
+        if write_back:
+            for buffer, value in zip(state_tensors(state),
+                                     state_tensors(slots.final)):
+                buffer.copy_(value)
+    segments.segment("outputs", outputs)
+    return (state if write_back else slots.final, slots.scalars,
+            slots.per_step, grad_keys, slots.info_keys, slots.digest)
 
 
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
@@ -140,77 +215,94 @@ def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
     return count.value
 
 
-class FusedTrainLoop:
+class FusedTrainLoop(Segments):
     """Runs chunks of whole updates of ``rollout_fn`` and ``update_fn`` on
     ``route`` (``choose_route``); with a ``mesh``, this rank's part of
-    them. After a capture, ``capture`` holds its seconds, the instantiation's
-    seconds, the graph's nodes and the bytes its memory pool reserved."""
+    them, and the loop is the ``Segments`` runner of ``mesh_update``. After
+    a capture, ``capture`` holds its seconds, the instantiation's seconds,
+    the graph's nodes and the bytes its memory pool reserved; under a mesh
+    their sums over the segments, and each segment's in ``segments``."""
 
     def __init__(self, rollout_fn: RolloutFn, update_fn: PPOUpdate,
                  route: str = "eager", mesh: Optional[DataMesh] = None):
         if route not in ("graph", "eager"):
             raise ValueError(
                 f"route must be 'graph' or 'eager', got {route!r}")
-        if route == "graph" and mesh is not None:
-            raise ValueError("the graph route runs on one device")
         self.rollout_fn = rollout_fn
         self.update_fn = update_fn
         self.route = route
         self.mesh = mesh
         self.grad_keys: Tuple[str, ...] = ()
         self.info_keys: Tuple[str, ...] = ()
-        self.capture: Dict[str, float] = {}
+        self.capture: Dict = {}
         self.reset()
 
     def reset(self) -> None:
-        """Forgets the graph and its buffers: the next update warms up and
-        captures anew. Needed after the optimizer's state is replaced
+        """Forgets the graphs and their buffers: the next update warms up
+        and captures anew. Needed after the optimizer's state is replaced
         (``load_state_dict`` makes new tensors)."""
         self._graph = None
         self._stream = None
         self._state: Optional[RolloutState] = None
-        self._outputs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._outputs: Optional[Tuple[torch.Tensor, ...]] = None
         self._replay_launches: Dict = {}
+        # Under a mesh: the segments' graphs, their pool, the launches of
+        # each, what passes between them, and how ``segment`` runs one.
+        self._graphs: Dict[str, torch.cuda.CUDAGraph] = {}
+        self._pool = None
+        self._segment_launches: Dict[str, Dict] = {}
+        self._slots = mesh_slots()
+        self._mode = "eager"
 
     def body(self, state: RolloutState):
-        """One update from ``state`` (``run_update``): (the rollout state
-        after it, its scalars, its per-step rows)."""
-        final, scalars, per_step, self.grad_keys, self.info_keys = run_update(
-            self.rollout_fn, self.update_fn, self.mesh, state)
+        """One update from ``state``: (the rollout state after it, its
+        scalars, its per-step rows[, its replica digest under a mesh])."""
+        if self.mesh is not None:
+            return self._mesh_body(state)
+        final, scalars, per_step, self.grad_keys, self.info_keys, _ = (
+            run_update(self.rollout_fn, self.update_fn, None, state))
         return final, scalars, per_step
+
+    def _mesh_body(self, state: RolloutState, write_back: bool = False):
+        final, scalars, per_step, self.grad_keys, self.info_keys, digest = (
+            mesh_update(self.rollout_fn, self.update_fn, self.mesh, state,
+                        self, self._slots, write_back))
+        return final, scalars, per_step, digest
 
     def __call__(self, state: RolloutState, schedule: np.ndarray
                  ) -> Tuple[RolloutState, ChunkOutputs]:
         """Runs ``len(schedule)`` updates from ``state``; row k of
         ``schedule`` is update k's (learning rate, clip range, beta).
         Returns the rollout state after them (on the graph route, the
-        loop's buffers) and the chunk's outputs on the device."""
+        loop's buffers) and the chunk's outputs on the device. Under a mesh
+        the chunk ends with the replica check."""
         schedule = torch.as_tensor(np.asarray(schedule, np.float32)).to(
             self.update_fn.schedule.device)            # one copy a chunk
+        K = len(schedule)
         chunk: List[torch.Tensor] = []
         for k, values in enumerate(schedule):
             self.update_fn.schedule.copy_(values)
             if self.route == "eager":
-                state, scalars, per_step = self.body(state)
-                self._store(chunk, k, len(schedule), scalars, per_step)
-            elif self._graph is None:
-                state = self._warm_up(state, chunk, k, len(schedule))
+                state, *outputs = self.body(state)
+                self._store(chunk, k, K, *outputs)
+            elif self._graph is None and not self._graphs:
+                state = self._warm_up(state, chunk, k, K)
                 self._capture()
             else:
                 state = self._adopt(state)
-                self._replay()
-                self._store(chunk, k, len(schedule), *self._outputs)
+                self._store(chunk, k, K, *self._replay())
+        if self.mesh is not None:
+            check_replicated(chunk[2], self.mesh)
         return state, ChunkOutputs(chunk[0], chunk[1], self.grad_keys,
                                    self.info_keys)
 
     @staticmethod
-    def _store(chunk: list, k: int, K: int, scalars, per_step) -> None:
+    def _store(chunk: list, k: int, K: int, *outputs) -> None:
         """Copies update k's outputs into row k of the chunk's arrays."""
         if not chunk:
-            chunk += [scalars.new_empty((K,) + tuple(scalars.shape)),
-                      per_step.new_empty((K,) + tuple(per_step.shape))]
-        chunk[0][k].copy_(scalars)
-        chunk[1][k].copy_(per_step)
+            chunk += [x.new_empty((K,) + tuple(x.shape)) for x in outputs]
+        for rows, x in zip(chunk, outputs):
+            rows[k].copy_(x)
 
     # --- the graph route --------------------------------------------------
 
@@ -222,16 +314,16 @@ class FusedTrainLoop:
         self._stream = torch.cuda.Stream(device)
         self._stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(self._stream):
-            final, scalars, per_step = self.body(state)
+            final, *outputs = self.body(state)
             self._state = type(final)(*(
                 type(final.env_state)(*(t.clone(memory_format=torch
                                                 .contiguous_format)
                                         for t in final.env_state)),
                 *(t.clone(memory_format=torch.contiguous_format)
                   for t in final[1:])))
-            self._outputs = (torch.empty_like(scalars),
-                             torch.empty_like(per_step))
-            self._store(chunk, k, K, scalars, per_step)
+            if self.mesh is None:
+                self._outputs = tuple(torch.empty_like(x) for x in outputs)
+            self._store(chunk, k, K, *outputs)
         torch.cuda.current_stream(device).wait_stream(self._stream)
         return self._state
 
@@ -243,11 +335,17 @@ class FusedTrainLoop:
         self._outputs[0].copy_(scalars)
         self._outputs[1].copy_(per_step)
 
+    def _kernels(self) -> list:
+        upd = self.update_fn
+        return [k for k in {upd.kernel, upd.backward_kernel} if k is not None]
+
     def _capture(self) -> None:
+        if self.mesh is not None:
+            self._capture_segments()
+            return
         device = self.update_fn.schedule.device
         upd = self.update_fn
-        kernels = [k for k in {upd.kernel, upd.backward_kernel}
-                   if k is not None]
+        kernels = self._kernels()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for generator in (self.rollout_fn.generator, upd.generator):
             graph.register_generator_state(generator)
@@ -275,6 +373,70 @@ class FusedTrainLoop:
             kernel.launches = n
         self._graph = graph
 
+    def _capture_segments(self) -> None:
+        """Under a mesh: each segment of ``mesh_update`` captured once, into
+        graphs that share one pool, the collectives skipped (a capture runs
+        nothing)."""
+        self.capture = {"segments": {}}
+        self._mode = "capture"
+        try:
+            self._mesh_body(self._state, write_back=True)
+        finally:
+            self._mode = "eager"
+        segments = self.capture["segments"].values()
+        for key in ("capture_s", "instantiate_s", "nodes", "pool_bytes"):
+            self.capture[key] = sum(c[key] for c in segments)
+
+    def segment(self, name: str, fn, generators=()) -> None:
+        """Runs segment ``name`` of ``mesh_update``: at once (eager, the
+        warm-up), captured (the first time it comes in a capture), or
+        replayed."""
+        if self._mode == "eager":
+            fn()
+        elif self._mode == "capture":
+            if name not in self._graphs:
+                self._capture_segment(name, fn, generators)
+        else:
+            self._graphs[name].replay()
+            for kernel, n in self._segment_launches[name].items():
+                kernel.launches += n
+
+    def collective(self, fn) -> None:
+        if self._mode != "capture":
+            fn()
+
+    def _capture_segment(self, name: str, fn, generators) -> None:
+        device = self.update_fn.schedule.device
+        kernels = self._kernels()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for generator in generators:
+            graph.register_generator_state(generator)
+        before = {kernel: kernel.launches for kernel in kernels}
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        t = time.perf_counter()
+        # thread_local: the process group's own threads (NCCL's watchdog)
+        # may query the device while this thread captures.
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            fn()
+        captured = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize(device)
+        self.capture["segments"][name] = dict(
+            capture_s=captured - t,
+            instantiate_s=time.perf_counter() - captured,
+            nodes=graph_nodes(graph),
+            pool_bytes=torch.cuda.memory_reserved(device) - reserved)
+        self._segment_launches[name] = {kernel: kernel.launches - n
+                                        for kernel, n in before.items()}
+        for kernel, n in before.items():
+            kernel.launches = n
+        if self._pool is None:
+            self._pool = graph.pool()
+        self._graphs[name] = graph
+
     def _adopt(self, state: RolloutState) -> RolloutState:
         """The buffers, holding ``state`` (copied in unless it is them, as
         after a ``train_one_update``)."""
@@ -284,7 +446,17 @@ class FusedTrainLoop:
                 buffer.copy_(value)
         return self._state
 
-    def _replay(self) -> None:
+    def _replay(self) -> Tuple[torch.Tensor, ...]:
+        """Replays the update; returns its outputs (under a mesh the
+        ``outputs`` segment's, where the capture put them)."""
+        if self.mesh is not None:
+            self._mode = "replay"
+            try:
+                _, *outputs = self._mesh_body(self._state, write_back=True)
+            finally:
+                self._mode = "eager"
+            return tuple(outputs)
         self._graph.replay()
         for kernel, n in self._replay_launches.items():
             kernel.launches += n
+        return self._outputs

@@ -50,21 +50,35 @@ gather, for every loss path.
 Data parallelism (a ``mesh``, ``parallel/mesh.py``): the batch is this
 rank's workers' rows. Every rank draws the same global permutation from its
 replicated generator; of each global minibatch of M samples it takes those
-whose worker is its own, in permutation order, with rank-local indices
-(``rank_minibatches``), so each rank projects only its own workers'
-timeline or sources and the kernels see a rank-local timeline. The loss is
-the rank's part of the global minibatch's: its advantages are normalised
-with the whole minibatch's mean and unbiased std (from the advantages of
-all workers, gathered once per update: one device's values in one device's
-order), and every mean is the rank's sum over the global count
-(``loss_from_outputs``). After the backward one ``all_reduce`` of one flat
-buffer sums every gradient and the six stats over the ranks
-(``mesh.all_reduce_flat``); every rank then clips and steps alike. A rank
-with no sample of a minibatch launches nothing and adds zeros.
+whose worker is its own, in permutation order, with rank-local indices, so
+each rank projects only its own workers' timeline or sources and the
+kernels see a rank-local timeline. The part has a fixed size
+C = min(M, W/N * T), which no global minibatch can exceed, so no sample is
+dropped and no shape depends on the data (``rank_parts``): pad rows repeat
+the part's real samples in turn (the rank's sample 0 where it has none)
+and carry a mask of 0. ``rank_minibatches`` is the variable-size part, the
+host-side reference that tests hold the padded parts to. The loss is the
+rank's part of the global minibatch's: its advantages are normalised with
+the whole minibatch's mean and unbiased std (from the advantages of all
+workers, which the caller gathers once per update with the episode rows:
+one device's values in one device's order), every per-sample term is
+multiplied by the mask before each sum, and every mean is the rank's sum
+over the global count (``loss_from_outputs``). A pad row's upstream
+gradient is then exactly 0, and a part with no real sample adds exact
+zeros. After the backward one ``all_reduce`` of one flat buffer at a fixed
+address (``mesh.flat_views``: the gradients are views of it, the six stats
+follow) sums every gradient and the stats over the ranks; every rank then
+clips and steps alike. The update runs as the segments ``prepare``, then
+``part`` and ``step`` with the all-reduce between them once a minibatch,
+then ``result``, through a ``Segments`` runner: this module's runs each at
+once, ``training/fused.py``'s captures each into a CUDA graph and replays
+it, with the collectives between the replays. One device keeps its own
+body: no mask, no padding.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -79,7 +93,7 @@ from ..ops.window_attention import (window_attention, window_attention_bwd,
                                     window_attention_bwd_grouped,
                                     window_attention_fwd,
                                     window_attention_fwd_grouped)
-from ..parallel.mesh import DataMesh, all_reduce_flat
+from ..parallel.mesh import DataMesh, flat_views
 from .rollout import RolloutBatch
 
 STAT_NAMES = ("policy_loss", "value_loss", "loss", "entropy", "kl",
@@ -130,14 +144,19 @@ def loss_from_outputs(logits, value, mb, clip_range, beta,
     of it on one device): the advantages are normalised with the global
     minibatch's ``mb["adv_mean"]`` and ``mb["adv_std"]``, and every mean is
     the part's sum over the global count, so the parts' losses and stats add
-    up to the global minibatch's. ``clip_range`` and ``beta`` are numbers or
-    0-d float32 tensors on the device (``PPOUpdate.schedule``)."""
+    up to the global minibatch's. With ``mb["mask"]`` (a padded rank part)
+    every per-sample term is multiplied by it before the sum. ``clip_range``
+    and ``beta`` are numbers or 0-d float32 tensors on the device
+    (``PPOUpdate.schedule``)."""
     log_probs, entropies = distributions.log_probs_and_entropies(
         logits, mb["actions"])
     adv = mb["advantages"]
     n = mb["n_global"]
+    mask = mb.get("mask")
 
     def mean(x):
+        if mask is not None:
+            x = x * mask.reshape((-1,) + (1,) * (x.dim() - 1))
         return x.sum() / (n * (x.numel() // x.shape[0]))
     norm_adv = ((adv - mb["adv_mean"]) / (mb["adv_std"] + 1e-8))[:, None]
     log_ratio = log_probs - mb["log_probs"]
@@ -175,6 +194,30 @@ def gather_windows(src: torch.Tensor, w_idx: torch.Tensor,
         tuple(flat_index.shape) + tuple(src.shape[2:]))
 
 
+class RankParts(NamedTuple):
+    """This rank's part of each global minibatch of an update, at the fixed
+    size C (``PPOUpdate.rank_parts``)."""
+    local: torch.Tensor     # (n, C) int64 rank-local sample indices
+    mask: torch.Tensor      # (n, C) float32: 1 a real sample, 0 a pad
+    counts: torch.Tensor    # (n,) int64 real samples
+
+
+class Segments:
+    """How an update under a mesh runs: ``segment(name, fn, generators)``
+    a part that stays on the device (drawing from ``generators``),
+    ``collective(fn)`` one that talks to the other ranks. This runner runs
+    both at once; ``training/fused.py``'s graph route captures each segment
+    once into a CUDA graph and replays it, with the collectives run between
+    the replays."""
+
+    def segment(self, name: str, fn: Callable[[], None],
+                generators: Sequence[torch.Generator] = ()) -> None:
+        fn()
+
+    def collective(self, fn: Callable[[], None]) -> None:
+        fn()
+
+
 class PPOUpdate:
     """One PPO update of ``model`` from a rollout batch. The per-epoch
     permutations come from ``generator`` unless the caller passes them.
@@ -191,8 +234,17 @@ class PPOUpdate:
         self.max_ep = max_episode_steps
         self.generator = generator
         self.mesh = mesh
-        # This rank's samples in each minibatch of the last update.
-        self.rank_samples: List[int] = []
+        # Under a mesh: this rank's real samples in each minibatch of the
+        # last update (``rank_samples``), the gradients' flat buffer and
+        # its views, the sums of the stats and gradient-norm groups, the
+        # prepared update, its result.
+        self._counts: Optional[torch.Tensor] = None
+        self._flat: Optional[torch.Tensor] = None
+        self._grads: List[torch.Tensor] = []
+        self._sums: Optional[torch.Tensor] = None
+        self._group_keys: List[str] = []
+        self._prepared: Dict[str, torch.Tensor] = {}
+        self._result = None
         # The window-attention kernels for CUDA tensors (CPU tensors take
         # their plain versions inside the op); no backward kernel means the
         # plain VJP.
@@ -317,33 +369,71 @@ class PPOUpdate:
                 if self.config.use_pallas_attention
                 else self.prepare_gathered(batch))
 
+    @property
+    def rank_samples(self) -> List[int]:
+        """This rank's real samples in each minibatch of the last update: all
+        of them on one device; under a mesh read from the device (a host
+        sync)."""
+        cfg = self.config
+        if self.mesh is None:
+            return [cfg.mini_batch_size] * (cfg.epochs * cfg.n_mini_batch)
+        return [] if self._counts is None else self._counts.tolist()
+
+    def _rank_span(self) -> Tuple[int, int]:
+        """This rank's global sample indices: [lo, hi)."""
+        T = self.config.worker_steps
+        rows = self.mesh.worker_rows(self.config.n_workers)
+        return rows.start * T, rows.stop * T
+
     def rank_minibatches(self, mb_indices: torch.Tensor
                          ) -> List[torch.Tensor]:
         """This rank's part of each global minibatch (a row of
         ``mb_indices``, global sample indices ``w * T + t``): the samples of
         its own workers, in the row's order, as rank-local indices; possibly
-        none. One host sync for the whole update."""
-        T = self.config.worker_steps
-        rows = self.mesh.worker_rows(self.config.n_workers)
-        lo, hi = rows.start * T, rows.stop * T
+        none. Sized on the host: the reference ``rank_parts`` is held to."""
+        lo, hi = self._rank_span()
         mine = (mb_indices >= lo) & (mb_indices < hi)
         counts = mine.sum(dim=1).tolist()
         first = torch.argsort((~mine).to(torch.int32), dim=1, stable=True)
         local = torch.gather(mb_indices, 1, first) - lo
         return [local[j, :c] for j, c in enumerate(counts)]
 
+    def rank_parts(self, mb_indices: torch.Tensor) -> RankParts:
+        """``rank_minibatches`` at the fixed size C = min(M, W/N * T), on
+        the device, with no host read: the real samples first, in the row's
+        order, then pads that repeat them in turn (the rank's sample 0
+        where it has none), masked."""
+        lo, hi = self._rank_span()
+        C = min(mb_indices.shape[1], hi - lo)
+        mine = (mb_indices >= lo) & (mb_indices < hi)
+        counts = mine.sum(dim=1)
+        first = torch.argsort((~mine).to(torch.int32), dim=1,
+                              stable=True)[:, :C]
+        local = torch.gather(mb_indices, 1, first) - lo
+        col = torch.arange(C, device=mb_indices.device)
+        real = col[None] < counts[:, None]
+        source = torch.where(real, col[None],
+                             col[None] % counts.clamp(min=1)[:, None])
+        local = torch.where(counts[:, None] > 0,
+                            torch.gather(local, 1, source), 0)
+        return RankParts(local, real.float(), counts)
+
     def minibatch(self, fields, idx: torch.Tensor,
-                  global_adv: Optional[torch.Tensor] = None):
+                  global_adv: Optional[torch.Tensor] = None,
+                  mask: Optional[torch.Tensor] = None):
         """The samples ``idx`` (rank-local indices) of a global minibatch
         whose advantages are ``global_adv`` (by default these samples': the
         whole minibatch on one device), with that minibatch's advantage
-        statistics and size for ``loss_from_outputs``."""
+        statistics and size for ``loss_from_outputs``, and ``mask`` where
+        the part is padded."""
         mb = {k: v[idx] for k, v in fields.items()}
         if mb["obs"].dtype == torch.uint8:          # obs_uint8
             mb["obs"] = mb["obs"].float() / 255.0
         mb["w_idx"] = (idx // self.config.worker_steps).to(torch.int32)
         adv = mb["advantages"] if global_adv is None else global_adv
         mb.update(adv_mean=adv.mean(), adv_std=adv.std(), n_global=adv.numel())
+        if mask is not None:
+            mb["mask"] = mask
         return mb
 
     def set_schedule(self, learning_rate, clip_range, beta) -> None:
@@ -368,42 +458,46 @@ class PPOUpdate:
         self.set_schedule(learning_rate, clip_range, beta)
         return self.run(batch, perms)
 
-    def run(self, batch: RolloutBatch, perms: Optional[torch.Tensor] = None):
+    def permutations(self, device) -> torch.Tensor:
+        """The update's per-epoch permutations (epochs, B), drawn from
+        ``generator``."""
+        return torch.stack([
+            torch.randperm(self.config.batch_size, generator=self.generator,
+                           device=device)
+            for _ in range(self.config.epochs)])
+
+    def run(self, batch: RolloutBatch, perms: Optional[torch.Tensor] = None,
+            advantages: Optional[torch.Tensor] = None,
+            segments: Optional[Segments] = None):
         """Runs epochs x minibatches with the values of ``schedule``.
-        ``perms`` (epochs, B) overrides the generator's permutations.
-        Returns (mean stats (6,), mean grad-norm groups), as tensors on the
-        device. On one device nothing here waits for the device."""
+        ``perms`` (epochs, B) overrides the generator's permutations. Under
+        a mesh, ``advantages`` (W, T) are all workers' and the update runs
+        through ``segments`` (by default each at once). Returns (mean stats
+        (6,), mean grad-norm groups), as tensors on the device. On one
+        device nothing here waits for the device."""
         cfg = self.config
-        B = cfg.batch_size
-        memory, memory_slots, fields = self.prepare(batch)
-        device = memory.device
-        if perms is None:
-            perms = torch.stack([
-                torch.randperm(B, generator=self.generator, device=device)
-                for _ in range(cfg.epochs)])
-        mb_indices = perms.to(device).reshape(
-            cfg.epochs * cfg.n_mini_batch, cfg.mini_batch_size)
         learning_rate, clip_range, beta = self.schedule.unbind()
         for group in self.optimizer.param_groups:
             # A capturable AdamW reads the device tensor in its step.
             group["lr"] = (learning_rate if group["capturable"]
                            else float(learning_rate))
-
-        # The advantages of all workers, in the global sample order, and this
-        # rank's part of each minibatch (on one device, all of it).
-        if self.mesh is None:
-            advantages = batch.advantages.reshape(-1)
-            local_indices = list(mb_indices)
-        else:
-            advantages = self.mesh.gather_workers(
-                batch.advantages, "advantages").reshape(-1)
-            local_indices = self.rank_minibatches(mb_indices)
-        self.rank_samples = [len(i) for i in local_indices]
-
+        if self.mesh is not None:
+            if advantages is None:
+                raise ValueError("under a mesh the update needs the "
+                                 "advantages of all workers")
+            return self._run_mesh(batch, perms, advantages,
+                                  segments or Segments())
+        memory, memory_slots, fields = self.prepare(batch)
+        device = memory.device
+        if perms is None:
+            perms = self.permutations(device)
+        mb_indices = perms.to(device).reshape(
+            cfg.epochs * cfg.n_mini_batch, cfg.mini_batch_size)
+        advantages = batch.advantages.reshape(-1)
         stats_sum = torch.zeros(len(STAT_NAMES), device=device)
         groups_sum: Dict[str, torch.Tensor] = {}
-        for idx, local_idx in zip(mb_indices, local_indices):
-            stats = self._backward(fields, local_idx, advantages[idx], memory,
+        for idx in mb_indices:
+            stats = self._backward(fields, idx, advantages[idx], memory,
                                    memory_slots, clip_range, beta)
             clip_grads_torch(self.model, cfg.max_grad_norm)
             for k, v in grad_norm_groups(self.model).items():
@@ -413,28 +507,94 @@ class PPOUpdate:
         n = len(mb_indices)
         return stats_sum / n, {k: v / n for k, v in groups_sum.items()}
 
-    def _backward(self, fields, local_idx, global_adv, memory, memory_slots,
+    def _backward(self, fields, idx, global_adv, memory, memory_slots,
                   clip_range, beta) -> torch.Tensor:
-        """This rank's part of one global minibatch (``local_idx``, possibly
-        empty under a mesh; ``global_adv`` all its advantages): the backward
-        of its part of the loss, then, under a mesh, one all-reduce of the
-        gradients and the stats. Leaves the (summed) gradients in ``.grad``;
-        returns the (summed) stats."""
+        """One device: the backward of one minibatch's loss. Leaves the
+        gradients in ``.grad``; returns the stats."""
         self.optimizer.zero_grad(set_to_none=True)
-        if local_idx.numel() > 0:
-            mb = self.minibatch(fields, local_idx, global_adv)
-            loss, stats = self.loss(mb, memory, memory_slots, clip_range,
-                                    beta)
-            loss.backward()
-        else:
-            stats = torch.zeros(len(STAT_NAMES), device=memory.device)
-        if self.mesh is None:
-            return stats
-        params = list(self.model.parameters())
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        *summed, stats = all_reduce_flat(grads + [stats], self.mesh,
-                                         "gradients")
-        for p, g in zip(params, summed):
-            p.grad = g
+        mb = self.minibatch(fields, idx, global_adv)
+        loss, stats = self.loss(mb, memory, memory_slots, clip_range, beta)
+        loss.backward()
         return stats
+
+    # --- under a mesh: the update in segments --------------------------------
+
+    def _run_mesh(self, batch: RolloutBatch, perms, advantages,
+                  segments: Segments):
+        cfg = self.config
+        segments.segment(
+            "prepare", lambda: self._prepare_mesh(batch, perms, advantages),
+            (self.generator,))
+        for _ in range(cfg.epochs * cfg.n_mini_batch):
+            segments.segment("part", self._part_backward)
+            segments.collective(
+                lambda: self.mesh.all_reduce_(self._flat, "gradients"))
+            segments.segment("step", self._part_step)
+        segments.segment("result", self._mesh_result)
+        return self._result
+
+    def _prepare_mesh(self, batch: RolloutBatch, perms, advantages) -> None:
+        """Segment ``prepare``: the loss's inputs, this update's
+        permutations and rank parts, the sums zeroed, the minibatch counter
+        at 0."""
+        cfg = self.config
+        memory, memory_slots, fields = self.prepare(batch)
+        device = memory.device
+        if perms is None:
+            perms = self.permutations(device)
+        mb_indices = perms.to(device).reshape(
+            cfg.epochs * cfg.n_mini_batch, cfg.mini_batch_size)
+        parts = self.rank_parts(mb_indices)
+        self._counts = parts.counts
+        if self._sums is not None:
+            self._sums.zero_()
+        self._prepared = dict(
+            memory=memory, memory_slots=memory_slots, fields=fields,
+            mb_indices=mb_indices, local=parts.local, mask=parts.mask,
+            advantages=advantages.reshape(-1),
+            j=torch.zeros(1, dtype=torch.int64, device=device))
+
+    def _part_backward(self) -> None:
+        """Segment ``part``: this rank's padded part of minibatch j (the
+        device counter) into the flat buffer: the gradients of its part of
+        the loss, then its stats."""
+        p = self._prepared
+        if self._flat is None:
+            self._flat, self._grads = flat_views(
+                list(self.model.parameters()), len(STAT_NAMES))
+        for param, grad in zip(self.model.parameters(), self._grads):
+            param.grad = grad       # views of the buffer, accumulated into
+        self._flat.zero_()
+        j = p["j"]
+        idx = p["local"].index_select(0, j)[0]
+        global_adv = p["advantages"][p["mb_indices"].index_select(0, j)[0]]
+        mb = self.minibatch(p["fields"], idx, global_adv,
+                            p["mask"].index_select(0, j)[0])
+        _, clip_range, beta = self.schedule.unbind()
+        loss, stats = self.loss(mb, p["memory"], p["memory_slots"],
+                                clip_range, beta)
+        loss.backward()
+        self._flat[-len(STAT_NAMES):].copy_(stats)
+
+    def _part_step(self) -> None:
+        """Segment ``step``, on the summed buffer: clip, the gradient-norm
+        groups, the AdamW step, the sums; the counter to the next
+        minibatch."""
+        clip_grads_torch(self.model, self.config.max_grad_norm)
+        groups = grad_norm_groups(self.model)
+        self.optimizer.step()
+        sums = torch.cat([self._flat[-len(STAT_NAMES):],
+                          torch.stack([groups[k] for k in sorted(groups)])])
+        if self._sums is None:
+            self._sums = torch.zeros_like(sums)
+            self._group_keys = sorted(groups)
+        self._sums += sums
+        self._prepared["j"] += 1
+
+    def _mesh_result(self) -> None:
+        """Segment ``result``: the means over the minibatches."""
+        n = self.config.epochs * self.config.n_mini_batch
+        means = self._sums / n
+        k = len(STAT_NAMES)
+        self._result = (means[:k], {key: means[k + i] for i, key in
+                                    enumerate(self._group_keys)})

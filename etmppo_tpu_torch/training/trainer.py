@@ -15,8 +15,9 @@ the next checkpoint) when ``updates_per_launch`` > 1, so checkpoints fall at
 chunk boundaries, and prints each update's line after its chunk. A host env
 runs update by update. The steady env-steps/s leaves out the whole first
 launch and is there only when there was more than one launch. The fused
-launch's route (``fused_route``: a CUDA graph of one update, replayed, or
-the same chunks run eagerly on the CPU, under a mesh or under
+launch's route (``fused_route``: on CUDA a CUDA graph of one update, or
+under a mesh CUDA graphs of its segments with the collectives between them,
+replayed; the same chunks run eagerly on the CPU or under
 ``--debug-nans``) is printed at the first chunk.
 
 The loss and kernel choice is this trainer's (``config.use_pallas_attention``,
@@ -36,7 +37,8 @@ modules and parameters are named in the checks' errors.
 trainer is one rank of N, given as ``mesh`` (``parallel.mesh.spawn`` or
 torchrun start the ranks; ``cli.py`` does either). The rank's env holds its
 W/N workers and draws for all W; the parameters are broadcast from rank 0
-and checked bit-identical on every rank after every update. Only rank 0
+and checked bit-identical on every rank after every update (at the end of
+each fused launch, for every update of it). Only rank 0
 writes: the CSV and TensorBoard, the checkpoints, the ``.nn`` and the
 per-update line. The episode statistics and ``value_mean`` /
 ``advantage_mean`` it logs are the global ones (the dones, the episode
@@ -60,8 +62,8 @@ import torch
 from ..config import TrainConfig
 from ..envs.factory import create_env
 from ..models.actor_critic import ActorCriticModel
-from ..parallel.mesh import (DataMesh, gather_worker_tree, replicate_tree,
-                             shard_worker_tree)
+from ..parallel.mesh import (DataMesh, check_replicated, gather_worker_tree,
+                             replicate_tree, shard_worker_tree)
 from ..utils.profiling import annotate
 from ..utils.runtime import debug_nans_enabled, name_modules, resolve_device
 from . import metrics as metrics_lib
@@ -245,9 +247,11 @@ class PPOTrainer:
             cfg.learning_rate_schedule.value(self.update),
             cfg.clip_range_schedule.value(self.update),
             cfg.beta_schedule.value(self.update))
-        self.rollout_state, scalars, per_step, grad_keys, info_keys = (
+        self.rollout_state, scalars, per_step, grad_keys, info_keys, digest = (
             run_update(self.rollout_fn, self.update_fn, self.mesh,
                        self.rollout_state))
+        if self.mesh is not None:
+            check_replicated(digest[None], self.mesh)
         return self._record(ChunkOutputs(scalars[None], per_step[None],
                                          grad_keys, info_keys))[0]
 

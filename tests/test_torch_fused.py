@@ -352,15 +352,16 @@ def test_routes():
     cuda = torch.device("cuda", 0)
     assert fused_lib.choose_route(torch.device("cpu"), None)[0] == "eager"
     assert fused_lib.choose_route(cuda, None)[0] == "graph"
-    assert fused_lib.choose_route(cuda, object())[0] == "eager"
+    assert fused_lib.choose_route(cuda, object())[0] == "graph"
     runtime.set_debug_nans(True)
     try:
         route, why = fused_lib.choose_route(cuda, None)
     finally:
         runtime.set_debug_nans(False)
     assert route == "eager" and "debug-nans" in why
-    with pytest.raises(ValueError, match="one device"):
-        fused_lib.FusedTrainLoop(None, None, "graph", mesh=object())
+    mesh = object()
+    loop = fused_lib.FusedTrainLoop(None, None, "graph", mesh=mesh)
+    assert loop.route == "graph" and loop.mesh is mesh
     with pytest.raises(ValueError, match="route"):
         fused_lib.FusedTrainLoop(None, None, "jit")
 

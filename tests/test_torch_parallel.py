@@ -19,7 +19,7 @@ import torch.distributed as dist
 from etmppo_tpu_torch.config import config_from_dict
 from etmppo_tpu_torch.parallel import multihost, probe
 from etmppo_tpu_torch.parallel.mesh import (DATA_AXIS, DataMesh,
-                                            all_reduce_flat,
+                                            flat_views,
                                             gather_worker_tree, make_mesh,
                                             replica_digest, replicate_tree,
                                             shard_worker_tree, spawn)
@@ -295,8 +295,16 @@ def test_a_wrong_rank_loss_misses_the_global_minibatch(trained, path, wrong):
 
 
 def test_all_reduce_flat_in_one_rank(one_rank_group):
+    """Tensors that live in ``flat_views``' views are summed by one
+    all-reduce of the buffer, which keeps its address."""
     mesh = make_mesh(1, "cpu")
     a, b = torch.randn(3, 2), torch.randn(4)
-    sa, sb = all_reduce_flat([a, b], mesh, "sum")
-    assert torch.equal(sa, a) and torch.equal(sb, b)
-    assert sa.shape == (3, 2) and mesh.traffic["sum"]["calls"] == 1
+    flat, (va, vb) = flat_views([a, b], extra=2)
+    assert flat.shape == (12,) and not flat.any()
+    va.copy_(a)
+    vb.copy_(b)
+    address = flat.data_ptr()
+    mesh.all_reduce_(flat, "sum")
+    assert torch.equal(va, a) and torch.equal(vb, b)
+    assert va.shape == (3, 2) and flat.data_ptr() == address
+    assert mesh.traffic["sum"]["calls"] == 1
