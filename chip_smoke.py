@@ -279,6 +279,22 @@ Phases, each printing one line with its seconds:
                 Where the call has two or more cards, data-parallel-scaling
                 also runs the graph route at N = 1, 2 and 4 (two launches
                 of 2; the steady env-steps/s of launch 2).
+22. phase-clock: the trainer's phase clock (utils/profiling.PhaseClock,
+                csrc/phase_stamp.cu) at the two benchmark flagships,
+                MiniGrid-Memory and Mystery Path Grid, as their YAMLs say
+                (launches of 4): a trainer with the clock off and one with
+                it on, whose graph must hold the off graph's nodes plus one
+                per stamp; their steady launches by the host clock, 3 each
+                in turns; then a launch whose replays CUDA events time: each
+                update span must agree with its replay's events within 1%.
+                Prints each phase's median over the launch's updates, the
+                launch's host spans, its idle time (the launch's host
+                seconds less its updates' spans) and 4 x (rollout +
+                ppo_update + outputs) + idle against the clock-off launch.
+                ``python3 chip_smoke.py phase-clock`` runs the device line,
+                this phase and, per flagship, 3 processes with the clock
+                off and 3 with it on, in turns, each timing its steady
+                launches (the clock's cost in env-steps/s, with the spread).
 No window-attention kernel may launch in phases 10-14. The flagship phase
 (4) also prints flagship-mfu: the FLOPs of a PPO update (counted_flops of
 one minibatch's forward and backward, plus window_attention_flops for the
@@ -2980,14 +2996,14 @@ def named_launches(names: dict, function: str) -> int:
 def traced_replay(trainer, log_dir: str) -> tuple:
     """One more update of a trainer on the graph route, a replay, under
     utils/profiling.trace: the device busy share of the update
-    (``utils/profiling.device_busy`` over the span ``fused_chunk``) and the
+    (``utils/profiling.device_busy`` over the span ``launch``) and the
     launches of each CUDA function by name."""
     from etmppo_tpu_torch.utils.profiling import TRACE_FILE, device_busy, trace
     with trace(log_dir):
         trainer.train_chunk(1)
         torch.cuda.synchronize()
     path = os.path.join(log_dir, TRACE_FILE)
-    return device_busy(path, ("fused_chunk",))["total"], kernel_events(path)
+    return device_busy(path, ("launch",))["total"], kernel_events(path)
 
 
 def busy(shares: dict) -> str:
@@ -3266,6 +3282,238 @@ def update_mfu(trainer, batch, update_s: float) -> str:
             f"{peak / 1e12:.1f} TFLOP/s")
 
 
+# --- phase 22: the phase clock ------------------------------------------
+
+CLOCK_FLAGSHIPS = ("MINIGRID_FLAGSHIP", "MYSTERY_PATH_GRID")
+# Steady launches of the clock-off and clock-on trainers, in turns.
+CLOCK_TURNS = (False, True, True, False, False, True)
+CLOCK_RATE_SECONDS = 15.0
+
+
+class EventTimedGraph:
+    """A CUDA graph whose every replay a pair of CUDA events times."""
+
+    def __init__(self, graph):
+        self.graph, self.events = graph, []
+
+    def replay(self):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        self.graph.replay()
+        end.record()
+        self.events.append((start, end))
+
+
+def clock_trainer(name: str, tmp: str, device, on: bool, seed: int = 0):
+    """The flagship ``name`` of ``etmppo_tpu_torch.config`` as its YAML
+    says, with the clock on or off; it must take the graph route."""
+    from etmppo_tpu_torch import config as config_lib
+    from etmppo_tpu_torch.training.trainer import PPOTrainer
+    config = dataclasses.replace(
+        config_lib.config_from_dict(getattr(config_lib, name)),
+        summary_dir=tmp, checkpoint_dir=tmp, seed=seed)
+    trainer = PPOTrainer(config, run_id=name, device=device,
+                         enable_metrics=False, phase_clock=on)
+    check_graph_route(trainer, name)
+    return trainer
+
+
+def clock_stamps(config) -> int:
+    """The stamps of one update on one device: 4 a rollout step, 4 a
+    minibatch (the loss's and the step's phases), 12 around them."""
+    return (4 * config.worker_steps
+            + 4 * config.epochs * config.n_mini_batch + 12)
+
+
+def launch_seconds(trainer, launches: int) -> list:
+    """Host seconds of each of ``launches`` launches, each ending in its
+    drain (the launch's device-to-host copies wait for the card)."""
+    k = trainer.config.updates_per_launch
+    out = []
+    for _ in range(launches):
+        t = time.perf_counter()
+        trainer.train_chunk(k)
+        out.append(time.perf_counter() - t)
+    return out
+
+
+def clock_breakdown(clock, first: int, k: int) -> dict:
+    """The medians over updates ``first`` .. ``first + k - 1`` of each
+    phase, the launch's host spans, and its idle seconds: the launch less
+    its updates' spans."""
+    from etmppo_tpu_torch.utils.profiling import PHASES
+    updates = [clock.updates[u]["seconds"] for u in range(first, first + k)]
+    phases = {p: float(np.median([u[p] for u in updates])) for p in PHASES}
+    launch = clock.launches[first]
+    idle = launch["launch"] - sum(u["update"] for u in updates)
+    return dict(phases=phases, launch=launch, idle_s=idle)
+
+
+def fmt(values) -> str:
+    return "/".join(f"{v:.4f}" for v in values)
+
+
+def run_phase_clock(device, rates: int = 0) -> dict:
+    """Phase 22 (the module's docstring); with ``rates`` > 0 also that many
+    processes each with the clock off and on, per flagship. Returns the
+    numbers by flagship."""
+    out = {}
+    for name in CLOCK_FLAGSHIPS:
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            off = clock_trainer(name, tmp, device, False)
+            k = off.config.updates_per_launch
+            steps = off.env_steps_per_update
+            first_off = launch_seconds(off, 1)[0]
+            nodes_off = off.fused_loop.capture["nodes"]
+            stamps = clock_stamps(off.config)
+            on = clock_trainer(name, tmp, device, True)
+            first_on = launch_seconds(on, 1)[0]
+            capture = dict(on.fused_loop.capture)
+            turns = {False: [], True: []}       # launches in turns
+            for clock_on in CLOCK_TURNS:
+                turns[clock_on] += launch_seconds(on if clock_on else off, 1)
+            steady = turns[False]
+            del off
+            torch.cuda.empty_cache()
+            loop = on.fused_loop
+            loop._graph = timed_graph = EventTimedGraph(loop._graph)
+            u0 = on.update
+            launch_seconds(on, 1)
+            torch.cuda.synchronize(device)
+            event_s = [a.elapsed_time(b) * 1e-3
+                       for a, b in timed_graph.events]
+            clock = on.clock
+            span_s = [clock.updates[u0 + i]["seconds"]["update"]
+                      for i in range(k)]
+            parts = clock_breakdown(clock, u0, k)
+            setup = dict(clock.setup)
+            first_launch = dict(clock.launches[0])
+            del on, loop, timed_graph
+            torch.cuda.empty_cache()
+        agree = max(abs(s - e) / e for s, e in zip(span_s, event_s))
+        p = parts["phases"]
+        accounted = k * (p["rollout"] + p["ppo_update"] + p["outputs"]) \
+            + parts["idle_s"]
+        off_launch = float(np.median(steady))
+        numbers = dict(
+            nodes_off=nodes_off, nodes_on=capture["nodes"], stamps=stamps,
+            update_vs_events=agree, span_s=span_s, event_s=event_s,
+            phases=p, launch=parts["launch"], idle_s=parts["idle_s"],
+            accounted_s=accounted, off_launch_s=steady,
+            on_launch_s=turns[True],
+            off_rate=k * steps / off_launch, first_launch_off_s=first_off,
+            first_launch_on_s=first_on, first_launch=first_launch,
+            setup=setup)
+        phase("phase-clock", t, f"{name}: nodes off {nodes_off}, on "
+              f"{capture['nodes']} (+{capture['nodes'] - nodes_off}, "
+              f"{stamps} stamps); update span vs CUDA events max "
+              f"{agree * 100:.3f}%; phases (median s) " + ", ".join(
+                  f"{n} {v:.4f}" for n, v in p.items())
+              + f"; launch {parts['launch']['launch']:.4f}s, idle "
+              f"{parts['idle_s'] * 1e3:.1f} ms; 4 x (rollout + ppo_update + "
+              f"outputs) + idle {accounted:.4f}s vs the clock-off launch "
+              f"{off_launch:.4f}s ({(accounted / off_launch - 1) * 100:+.2f}"
+              f"%); in turns, launches off {fmt(steady)} s, on "
+              f"{fmt(turns[True])} s; set-up " + ", ".join(f"{n} {v:.2f}s"
+                                         for n, v in setup.items())
+              + "; first launch " + ", ".join(
+                  f"{n} {v:.2f}s" for n, v in first_launch.items()
+                  if n != "updates"))
+        print("phase-clock-numbers " + json.dumps({name: numbers}),
+              flush=True)
+        problems = []
+        if capture["nodes"] != nodes_off + stamps:
+            problems.append(f"{capture['nodes']} nodes with the clock on, "
+                            f"not {nodes_off} + {stamps}")
+        if agree > 0.01:
+            problems.append(f"update spans {span_s} vs events {event_s}")
+        if problems:
+            raise RuntimeError(f"phase-clock {name}: " + "; ".join(problems))
+        if rates:
+            numbers["rates"] = clock_rates(name, rates)
+        out[name] = numbers
+    return out
+
+
+def clock_rate(name: str, on: bool, seed: int, seconds: float) -> None:
+    """One process's steady env-steps/s of the flagship ``name`` with the
+    clock on or off: launches after the first until ``seconds`` pass.
+    Prints one JSON line."""
+    device = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = clock_trainer(name, tmp, device, on, seed)
+        k = trainer.config.updates_per_launch
+        launch_seconds(trainer, 1)
+        ends = [time.perf_counter()]
+        while ends[-1] - ends[0] < seconds:
+            trainer.train_chunk(k)
+            ends.append(time.perf_counter())
+        rate = ((len(ends) - 1) * k * trainer.env_steps_per_update
+                / (ends[-1] - ends[0]))
+    print("clock-rate " + json.dumps(dict(name=name, on=on, seed=seed,
+                                          env_steps_per_s=rate)), flush=True)
+
+
+def clock_rates(name: str, n: int) -> dict:
+    """``n`` processes with the clock off and ``n`` with it on, in turns
+    (off, on, on, off, ...), seeds 1 .. 2n; the medians and quartile
+    spreads of their env-steps/s."""
+    import statistics
+    rates = {False: [], True: []}
+    order = [(False, True, True, False)[i % 4] for i in range(2 * n)]
+    for i, on in enumerate(order):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.clock_rate("
+             f"{name!r}, {on}, {i + 1}, {CLOCK_RATE_SECONDS})"],
+            capture_output=True, text=True, timeout=900,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise RuntimeError(f"clock_rate {name} on={on}: "
+                               f"{proc.stderr[-2000:]}")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("clock-rate ")][-1]
+        rate = json.loads(line.split(" ", 1)[1])["env_steps_per_s"]
+        rates[on].append(rate)
+        phase("phase-clock-rate", t, f"{name} clock {'on' if on else 'off'}"
+              f" seed {i + 1}: {rate:.1f} env-steps/s")
+    out = {}
+    for on, values in rates.items():
+        q1, med, q3 = statistics.quantiles(values, n=4)
+        out["on" if on else "off"] = dict(values=values, median=med,
+                                          spread=(q3 - q1) / med)
+    cost = 1 - out["on"]["median"] / out["off"]["median"]
+    phase("phase-clock-cost", time.perf_counter(),
+          f"{name}: off median {out['off']['median']:.1f} env-steps/s "
+          f"(spread {out['off']['spread'] * 100:.2f}%), on "
+          f"{out['on']['median']:.1f} (spread {out['on']['spread'] * 100:.2f}"
+          f"%): the clock costs {cost * 100:.2f}%")
+    out["cost"] = cost
+    return out
+
+
+def phase_clock_main() -> int:
+    """``python3 chip_smoke.py phase-clock``: the device line and phase 22
+    with the clock's cost in processes."""
+    start = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    device = torch.device("cuda", 0)
+    phase("device", start, f"{torch.cuda.get_device_name(0)}; torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
+    run_phase_clock(device, rates=3)
+    phase("total", start)
+    print(smi)
+    return 0
+
+
 def main() -> int:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3367,6 +3615,8 @@ def main() -> int:
     fused_mesh_rate(fused_mesh, one_device,
                     MINIGRID_FLAGSHIP["n_workers"]
                     * MINIGRID_FLAGSHIP["worker_steps"])
+    torch.cuda.empty_cache()
+    run_phase_clock(device)
     check_float32("before the result line")
 
     entries = []
@@ -3400,4 +3650,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase_clock_main() if sys.argv[1:] == ["phase-clock"]
+             else main())

@@ -13,7 +13,13 @@ without ``--cpu`` it raises. A ``.json`` config needs no PyYAML; without
 continues from the run's latest checkpoint (``checkpoint_interval > 0``);
 the final model is saved as ``<checkpoint_dir>/<run-id>.nn``. ``--profile``
 writes a torch.profiler Chrome trace of training to
-``DIR/<run-id>/trace.json``. ``--seeds N``
+``DIR/<run-id>/trace.json``, and turns the trainer's phase clock on
+(``PPOTrainer(phase_clock=True)``, ``utils/profiling.PhaseClock``), whose
+record it writes beside the trace as ``DIR/<run-id>/phases.json``: each
+update's phase seconds on the device (the rollout's policy, env step,
+reset paths and GAE, the PPO update's preparation, losses and steps, the
+outputs), each launch's host spans and the trainer's set-up spans.
+``--seeds N``
 trains seeds ``seed .. seed + N - 1`` one after another as
 ``<run-id>_s<seed>`` and prints the mean and std of their final
 ``reward_mean``. ``--debug-nans`` (``jax_debug_nans``) raises
@@ -30,7 +36,7 @@ CPU with ``--cpu``) and trains each seed on all of them; under torchrun
     torchrun --nproc_per_node=N -m etmppo_tpu_torch.cli --config=x.json
 
 Only rank 0 writes the summaries, the checkpoints and the model and prints;
-``--profile`` traces rank 0.
+``--profile`` traces rank 0 and writes its phases.
 """
 from __future__ import annotations
 
@@ -67,7 +73,8 @@ def train_main(argv=None):
     parser.add_argument("--updates", type=int, default=None,
                         help="Override the config's number of updates")
     parser.add_argument("--profile", metavar="DIR", default=None,
-                        help="Write a torch.profiler trace of training to DIR")
+                        help="Write a torch.profiler trace of training and "
+                             "the phase clock's record to DIR")
     parser.add_argument("--seeds", type=int, default=1,
                         help="Train N seeds one after another; models saved "
                              "as <run-id>_s<seed>.nn")
@@ -114,7 +121,7 @@ def _train_seeds(args, mesh=None):
     """Trains ``args.seeds`` seeds one after another; returns the last
     seed's training result."""
     from .training.trainer import PPOTrainer
-    from .utils.profiling import trace
+    from .utils.profiling import PHASES_FILE, trace
 
     primary = mesh is None or mesh.is_primary
     base = _read_config(args.config)
@@ -127,7 +134,8 @@ def _train_seeds(args, mesh=None):
         run_id = (args.run_id if args.seeds == 1
                   else f"{args.run_id}_s{config.seed}")
         trainer = PPOTrainer(config, run_id=run_id,
-                             device="cpu" if args.cpu else "cuda", mesh=mesh)
+                             device="cpu" if args.cpu else "cuda", mesh=mesh,
+                             phase_clock=bool(args.profile))
         if args.resume:
             resumed = trainer.resume_from_checkpoint()
             if primary:
@@ -137,6 +145,9 @@ def _train_seeds(args, mesh=None):
             with (trace(os.path.join(args.profile, run_id))
                   if args.profile and primary else contextlib.nullcontext()):
                 result = trainer.run_training()
+            if args.profile and primary:
+                trainer.clock.write(os.path.join(args.profile, run_id,
+                                                 PHASES_FILE))
         finally:
             trainer.close()
         results.append(result)

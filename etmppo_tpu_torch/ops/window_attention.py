@@ -543,6 +543,11 @@ class _CudaKernel:
                               static_smem=smem[0] if smem else 0))
         return found
 
+    def load(self) -> None:
+        """Builds the library if needed and loads it (the trainer does so
+        while it is set up, before its first launch)."""
+        self._function()
+
     def _function(self):
         if self._lib is None:
             lib = ctypes.CDLL(str(self.build()))

@@ -162,7 +162,7 @@ def train(mesh: Optional[DataMesh], config: TrainConfig, run_id: str = "probe",
           threads: Optional[int] = None, timed_collectives: bool = False,
           device="cpu", checkpoint_after: int = 0, save_model: bool = False,
           stub_pool: int = 0, chunk: int = 0,
-          trace: bool = False) -> Dict[str, Any]:
+          trace: bool = False, phase_clock: bool = False) -> Dict[str, Any]:
     """Trains ``updates`` updates of ``config`` on this rank (one device
     without a mesh) and returns, on the CPU: ``results`` (each update's
     result dict), ``digests`` and, with ``keep_params``, ``params`` (the
@@ -189,7 +189,8 @@ def train(mesh: Optional[DataMesh], config: TrainConfig, run_id: str = "probe",
     ``trace`` the ranks then run one more launch of one update, a replay,
     which rank 0 (or the one device) traces: ``busy`` is
     ``utils/profiling.device_busy`` of its spans ``rollout`` and
-    ``ppo_update`` (this process's kernels only)."""
+    ``ppo_update`` (this process's kernels only). ``phases`` is the
+    trainer's clock's record (``phase_clock`` turns it on)."""
     if threads:
         torch.set_num_threads(threads)
     if mesh is not None:
@@ -200,7 +201,7 @@ def train(mesh: Optional[DataMesh], config: TrainConfig, run_id: str = "probe",
         env = HostEnvBatch(make_env=StubEnv, n_procs=stub_pool)
     trainer = PPOTrainer(config, run_id=run_id, device=device,
                          enable_metrics=False, grouped=grouped, mesh=mesh,
-                         env=env)
+                         env=env, phase_clock=phase_clock)
     try:
         if state_dict is not None:
             trainer.model.load_state_dict(state_dict)
@@ -299,6 +300,7 @@ def train(mesh: Optional[DataMesh], config: TrainConfig, run_id: str = "probe",
         out["capture"] = dict(trainer.fused_loop.capture) if chunk else {}
         out["traffic"] = dict(mesh.traffic) if mesh is not None else {}
         out["rank"] = 0 if mesh is None else mesh.rank
+        out["phases"] = trainer.clock.record()
         return out
     finally:
         trainer.close()

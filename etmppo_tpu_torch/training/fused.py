@@ -61,7 +61,6 @@ collectives run between the replays, so the mesh's traffic counts are true.
 from __future__ import annotations
 
 import ctypes
-import time
 import types
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -69,7 +68,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import DataMesh, check_replicated, replica_digest
-from ..utils.profiling import annotate
+from ..utils.profiling import PhaseClock
 from ..utils.runtime import debug_nans_enabled, nan_errors
 from .ppo import PPOUpdate, Segments
 from .rollout import RolloutBatch, RolloutFn, RolloutState
@@ -119,19 +118,23 @@ def state_tensors(state: RolloutState) -> List[torch.Tensor]:
 def run_update(rollout_fn: RolloutFn, update_fn: PPOUpdate,
                mesh: Optional[DataMesh], state):
     """One update from ``state`` with the values of ``update_fn.schedule``,
-    run at once: the rollout (the spans ``rollout`` and ``ppo_update`` of a
-    profiler trace) and the PPO update; under a mesh ``mesh_update``.
-    Returns the rollout state after it, its scalars (6 + G + 2,) and its
-    per-step rows (1 + I, W, T), packed as ``ChunkOutputs``' rows, their
-    grad and info keys, and under a mesh the parameters' replica digest
-    (None on one device)."""
+    run at once: the rollout and the PPO update, the phases ``rollout`` and
+    ``ppo_update`` of ``update_fn.clock`` (which opens ``update`` first and
+    ``outputs`` last; the caller closes both after its write-back); under a
+    mesh ``mesh_update``. Returns the rollout state after it, its scalars
+    (6 + G + 2,) and its per-step rows (1 + I, W, T), packed as
+    ``ChunkOutputs``' rows, their grad and info keys, and under a mesh the
+    parameters' replica digest (None on one device)."""
     if mesh is not None:
         return mesh_update(rollout_fn, update_fn, mesh, state, Segments(),
                            mesh_slots())
-    with annotate("rollout"):
+    clock = update_fn.clock
+    clock.stamp(opens=("update",))
+    with clock.phase("rollout"):
         final, batch = rollout_fn(state)
-    with annotate("ppo_update"), nan_errors():
+    with clock.phase("ppo_update"), nan_errors():
         stats, grad_info = update_fn.run(batch)
+    clock.stamp(opens=("outputs",))
     grad_keys = tuple(sorted(grad_info))
     info_keys = tuple(sorted(batch.episode_infos))
     scalars = torch.cat([
@@ -158,7 +161,11 @@ def mesh_update(rollout_fn, update_fn: PPOUpdate, mesh: DataMesh, state,
     union of the ranks' (a host env's infos may carry keys only some ranks
     saw), gathered on the host, and become fixed. With ``write_back`` the
     rollout state after the update is copied into ``state``'s tensors and
-    ``state`` is returned. Returns what ``run_update`` returns."""
+    ``state`` is returned. The clock's phases ``rollout``, ``ppo_update`` and
+    ``outputs`` and the update's open and close are stamped between the
+    segments, on their stream. Returns what ``run_update`` returns."""
+    clock = update_fn.clock
+
     def rollout():
         slots.final, slots.batch = rollout_fn(state)
         if slots.info_keys is not None:
@@ -167,7 +174,8 @@ def mesh_update(rollout_fn, update_fn: PPOUpdate, mesh: DataMesh, state,
                 raise RuntimeError(f"the episode info keys changed from "
                                    f"{slots.info_keys} to {keys}")
             slots.rows = episode_rows(slots.batch, slots.info_keys)
-    with annotate("rollout"):
+    clock.stamp(opens=("update",))
+    with clock.phase("rollout"):
         segments.segment("rollout", rollout, (rollout_fn.generator,))
     if slots.info_keys is None:
         slots.info_keys = tuple(sorted(set().union(*mesh.all_gather_object(
@@ -180,7 +188,7 @@ def mesh_update(rollout_fn, update_fn: PPOUpdate, mesh: DataMesh, state,
         slots.global_rows = mesh.gather_workers(slots.rows, "advantages",
                                                 out=slots.global_rows)
     segments.collective(gather)
-    with annotate("ppo_update"), nan_errors():
+    with clock.phase("ppo_update"), nan_errors():
         stats, grad_info = update_fn.run(
             slots.batch, advantages=slots.global_rows[:, 2],
             segments=segments)
@@ -199,7 +207,9 @@ def mesh_update(rollout_fn, update_fn: PPOUpdate, mesh: DataMesh, state,
             for buffer, value in zip(state_tensors(state),
                                      state_tensors(slots.final)):
                 buffer.copy_(value)
-    segments.segment("outputs", outputs)
+    with clock.phase("outputs"):
+        segments.segment("outputs", outputs)
+    clock.stamp(closes=("update",))
     return (state if write_back else slots.final, slots.scalars,
             slots.per_step, grad_keys, slots.info_keys, slots.digest)
 
@@ -219,9 +229,13 @@ class FusedTrainLoop(Segments):
     """Runs chunks of whole updates of ``rollout_fn`` and ``update_fn`` on
     ``route`` (``choose_route``); with a ``mesh``, this rank's part of
     them, and the loop is the ``Segments`` runner of ``mesh_update``. After
-    a capture, ``capture`` holds its seconds, the instantiation's seconds,
-    the graph's nodes and the bytes its memory pool reserved; under a mesh
-    their sums over the segments, and each segment's in ``segments``."""
+    a capture, ``capture`` holds its seconds and the instantiation's (the
+    clock's spans ``launch.capture`` and ``launch.instantiate``), the
+    graph's nodes and the bytes its memory pool reserved; under a mesh
+    their sums over the segments, and each segment's in ``segments``. The
+    loop runs the clock's spans ``launch.warm_up`` and ``launch.replays``
+    and, after each update, ``clock.store``; ``clock`` is the update's
+    (``update_fn.clock``)."""
 
     def __init__(self, rollout_fn: RolloutFn, update_fn: PPOUpdate,
                  route: str = "eager", mesh: Optional[DataMesh] = None):
@@ -230,6 +244,8 @@ class FusedTrainLoop(Segments):
                 f"route must be 'graph' or 'eager', got {route!r}")
         self.rollout_fn = rollout_fn
         self.update_fn = update_fn
+        self.clock: PhaseClock = (update_fn.clock if update_fn is not None
+                                  else PhaseClock())
         self.route = route
         self.mesh = mesh
         self.grad_keys: Tuple[str, ...] = ()
@@ -285,12 +301,17 @@ class FusedTrainLoop(Segments):
             if self.route == "eager":
                 state, *outputs = self.body(state)
                 self._store(chunk, k, K, *outputs)
+                self._close_update()
             elif self._graph is None and not self._graphs:
-                state = self._warm_up(state, chunk, k, K)
+                with self.clock.span("launch.warm_up"):
+                    state = self._warm_up(state, chunk, k, K)
+                    torch.cuda.synchronize(self.update_fn.schedule.device)
                 self._capture()
             else:
-                state = self._adopt(state)
-                self._store(chunk, k, K, *self._replay())
+                with self.clock.span("launch.replays"):
+                    state = self._adopt(state)
+                    self._store(chunk, k, K, *self._replay())
+            self.clock.store(k, K)
         if self.mesh is not None:
             check_replicated(chunk[2], self.mesh)
         return state, ChunkOutputs(chunk[0], chunk[1], self.grad_keys,
@@ -303,6 +324,12 @@ class FusedTrainLoop(Segments):
             chunk += [x.new_empty((K,) + tuple(x.shape)) for x in outputs]
         for rows, x in zip(chunk, outputs):
             rows[k].copy_(x)
+
+    def _close_update(self) -> None:
+        """On one device, the clock's ``outputs`` and ``update`` close after
+        the write-back (``mesh_update`` closes its own)."""
+        if self.mesh is None:
+            self.clock.stamp(closes=("outputs", "update"))
 
     # --- the graph route --------------------------------------------------
 
@@ -324,6 +351,7 @@ class FusedTrainLoop(Segments):
             if self.mesh is None:
                 self._outputs = tuple(torch.empty_like(x) for x in outputs)
             self._store(chunk, k, K, *outputs)
+            self._close_update()
         torch.cuda.current_stream(device).wait_stream(self._stream)
         return self._state
 
@@ -334,6 +362,7 @@ class FusedTrainLoop(Segments):
             buffer.copy_(value)
         self._outputs[0].copy_(scalars)
         self._outputs[1].copy_(per_step)
+        self._close_update()
 
     def _kernels(self) -> list:
         upd = self.update_fn
@@ -352,18 +381,16 @@ class FusedTrainLoop(Segments):
         before = {kernel: kernel.launches for kernel in kernels}
         # The gradients the graph's backward makes come from its pool.
         upd.optimizer.zero_grad(set_to_none=True)
-        torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
-        t = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self._stream):
-            self._graph_body()
-        captured = time.perf_counter()
-        graph.instantiate()
-        torch.cuda.synchronize(device)
+        with self.clock.span("launch.capture", always=True) as captured:
+            with torch.cuda.graph(graph, stream=self._stream):
+                self._graph_body()
+        with self.clock.span("launch.instantiate", always=True) as built:
+            graph.instantiate()
+            torch.cuda.synchronize(device)
         self.capture = dict(
-            capture_s=captured - t,
-            instantiate_s=time.perf_counter() - captured,
+            capture_s=captured.seconds, instantiate_s=built.seconds,
             nodes=graph_nodes(graph),
             pool_bytes=torch.cuda.memory_reserved(device) - reserved)
         # A capture launches nothing: its counts move to every replay.
@@ -415,18 +442,18 @@ class FusedTrainLoop(Segments):
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
-        t = time.perf_counter()
-        # thread_local: the process group's own threads (NCCL's watchdog)
-        # may query the device while this thread captures.
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                              capture_error_mode="thread_local"):
-            fn()
-        captured = time.perf_counter()
-        graph.instantiate()
-        torch.cuda.synchronize(device)
+        with self.clock.span("launch.capture", always=True) as captured:
+            # thread_local: the process group's own threads (NCCL's
+            # watchdog) may query the device while this thread captures.
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                fn()
+        with self.clock.span("launch.instantiate", always=True) as built:
+            graph.instantiate()
+            torch.cuda.synchronize(device)
         self.capture["segments"][name] = dict(
-            capture_s=captured - t,
-            instantiate_s=time.perf_counter() - captured,
+            capture_s=captured.seconds, instantiate_s=built.seconds,
             nodes=graph_nodes(graph),
             pool_bytes=torch.cuda.memory_reserved(device) - reserved)
         self._segment_launches[name] = {kernel: kernel.launches - n

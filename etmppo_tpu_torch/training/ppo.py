@@ -94,6 +94,7 @@ from ..ops.window_attention import (window_attention, window_attention_bwd,
                                     window_attention_fwd,
                                     window_attention_fwd_grouped)
 from ..parallel.mesh import DataMesh, flat_views
+from ..utils.profiling import PhaseClock
 from .rollout import RolloutBatch
 
 STAT_NAMES = ("policy_loss", "value_loss", "loss", "entropy", "kl",
@@ -224,12 +225,16 @@ class PPOUpdate:
     ``grouped`` selects the grouped window-attention kernels (sorted by
     worker) in place of the per-sample ones. With a ``mesh`` the batch is
     this rank's workers' rows and the update is the global one (see the
-    module's docstring)."""
+    module's docstring). ``clock`` stamps the phases ``ppo_update.prepare``
+    and every minibatch's ``ppo_update.loss`` and ``ppo_update.step``
+    (``utils/profiling.PhaseClock``)."""
 
     def __init__(self, config: TrainConfig, model: ActorCriticModel,
                  max_episode_steps: int, generator: torch.Generator,
-                 grouped: bool = False, mesh: Optional[DataMesh] = None):
+                 grouped: bool = False, mesh: Optional[DataMesh] = None,
+                 clock: Optional[PhaseClock] = None):
         self.config = config
+        self.clock = clock or PhaseClock()
         self.model = model
         self.max_ep = max_episode_steps
         self.generator = generator
@@ -487,23 +492,27 @@ class PPOUpdate:
                                  "advantages of all workers")
             return self._run_mesh(batch, perms, advantages,
                                   segments or Segments())
-        memory, memory_slots, fields = self.prepare(batch)
-        device = memory.device
-        if perms is None:
-            perms = self.permutations(device)
-        mb_indices = perms.to(device).reshape(
-            cfg.epochs * cfg.n_mini_batch, cfg.mini_batch_size)
-        advantages = batch.advantages.reshape(-1)
-        stats_sum = torch.zeros(len(STAT_NAMES), device=device)
+        clock = self.clock
+        with clock.phase("ppo_update.prepare"):
+            memory, memory_slots, fields = self.prepare(batch)
+            device = memory.device
+            if perms is None:
+                perms = self.permutations(device)
+            mb_indices = perms.to(device).reshape(
+                cfg.epochs * cfg.n_mini_batch, cfg.mini_batch_size)
+            advantages = batch.advantages.reshape(-1)
+            stats_sum = torch.zeros(len(STAT_NAMES), device=device)
         groups_sum: Dict[str, torch.Tensor] = {}
         for idx in mb_indices:
-            stats = self._backward(fields, idx, advantages[idx], memory,
-                                   memory_slots, clip_range, beta)
-            clip_grads_torch(self.model, cfg.max_grad_norm)
-            for k, v in grad_norm_groups(self.model).items():
-                groups_sum[k] = groups_sum.get(k, 0.0) + v
-            self.optimizer.step()
-            stats_sum += stats
+            with clock.phase("ppo_update.loss"):
+                stats = self._backward(fields, idx, advantages[idx], memory,
+                                       memory_slots, clip_range, beta)
+            with clock.phase("ppo_update.step"):
+                clip_grads_torch(self.model, cfg.max_grad_norm)
+                for k, v in grad_norm_groups(self.model).items():
+                    groups_sum[k] = groups_sum.get(k, 0.0) + v
+                self.optimizer.step()
+                stats_sum += stats
         n = len(mb_indices)
         return stats_sum / n, {k: v / n for k, v in groups_sum.items()}
 
@@ -538,58 +547,62 @@ class PPOUpdate:
         permutations and rank parts, the sums zeroed, the minibatch counter
         at 0."""
         cfg = self.config
-        memory, memory_slots, fields = self.prepare(batch)
-        device = memory.device
-        if perms is None:
-            perms = self.permutations(device)
-        mb_indices = perms.to(device).reshape(
-            cfg.epochs * cfg.n_mini_batch, cfg.mini_batch_size)
-        parts = self.rank_parts(mb_indices)
-        self._counts = parts.counts
-        if self._sums is not None:
-            self._sums.zero_()
-        self._prepared = dict(
-            memory=memory, memory_slots=memory_slots, fields=fields,
-            mb_indices=mb_indices, local=parts.local, mask=parts.mask,
-            advantages=advantages.reshape(-1),
-            j=torch.zeros(1, dtype=torch.int64, device=device))
+        with self.clock.phase("ppo_update.prepare"):
+            memory, memory_slots, fields = self.prepare(batch)
+            device = memory.device
+            if perms is None:
+                perms = self.permutations(device)
+            mb_indices = perms.to(device).reshape(
+                cfg.epochs * cfg.n_mini_batch, cfg.mini_batch_size)
+            parts = self.rank_parts(mb_indices)
+            self._counts = parts.counts
+            if self._sums is not None:
+                self._sums.zero_()
+            self._prepared = dict(
+                memory=memory, memory_slots=memory_slots, fields=fields,
+                mb_indices=mb_indices, local=parts.local, mask=parts.mask,
+                advantages=advantages.reshape(-1),
+                j=torch.zeros(1, dtype=torch.int64, device=device))
 
     def _part_backward(self) -> None:
         """Segment ``part``: this rank's padded part of minibatch j (the
         device counter) into the flat buffer: the gradients of its part of
         the loss, then its stats."""
-        p = self._prepared
-        if self._flat is None:
-            self._flat, self._grads = flat_views(
-                list(self.model.parameters()), len(STAT_NAMES))
-        for param, grad in zip(self.model.parameters(), self._grads):
-            param.grad = grad       # views of the buffer, accumulated into
-        self._flat.zero_()
-        j = p["j"]
-        idx = p["local"].index_select(0, j)[0]
-        global_adv = p["advantages"][p["mb_indices"].index_select(0, j)[0]]
-        mb = self.minibatch(p["fields"], idx, global_adv,
-                            p["mask"].index_select(0, j)[0])
-        _, clip_range, beta = self.schedule.unbind()
-        loss, stats = self.loss(mb, p["memory"], p["memory_slots"],
-                                clip_range, beta)
-        loss.backward()
-        self._flat[-len(STAT_NAMES):].copy_(stats)
+        with self.clock.phase("ppo_update.loss"):
+            p = self._prepared
+            if self._flat is None:
+                self._flat, self._grads = flat_views(
+                    list(self.model.parameters()), len(STAT_NAMES))
+            for param, grad in zip(self.model.parameters(), self._grads):
+                param.grad = grad       # views of the buffer, accumulated into
+            self._flat.zero_()
+            j = p["j"]
+            idx = p["local"].index_select(0, j)[0]
+            global_adv = p["advantages"][p["mb_indices"].index_select(0, j)[0]]
+            mb = self.minibatch(p["fields"], idx, global_adv,
+                                p["mask"].index_select(0, j)[0])
+            _, clip_range, beta = self.schedule.unbind()
+            loss, stats = self.loss(mb, p["memory"], p["memory_slots"],
+                                    clip_range, beta)
+            loss.backward()
+            self._flat[-len(STAT_NAMES):].copy_(stats)
 
     def _part_step(self) -> None:
         """Segment ``step``, on the summed buffer: clip, the gradient-norm
         groups, the AdamW step, the sums; the counter to the next
         minibatch."""
-        clip_grads_torch(self.model, self.config.max_grad_norm)
-        groups = grad_norm_groups(self.model)
-        self.optimizer.step()
-        sums = torch.cat([self._flat[-len(STAT_NAMES):],
-                          torch.stack([groups[k] for k in sorted(groups)])])
-        if self._sums is None:
-            self._sums = torch.zeros_like(sums)
-            self._group_keys = sorted(groups)
-        self._sums += sums
-        self._prepared["j"] += 1
+        with self.clock.phase("ppo_update.step"):
+            clip_grads_torch(self.model, self.config.max_grad_norm)
+            groups = grad_norm_groups(self.model)
+            self.optimizer.step()
+            sums = torch.cat([self._flat[-len(STAT_NAMES):],
+                              torch.stack([groups[k]
+                                           for k in sorted(groups)])])
+            if self._sums is None:
+                self._sums = torch.zeros_like(sums)
+                self._group_keys = sorted(groups)
+            self._sums += sums
+            self._prepared["j"] += 1
 
     def _mesh_result(self) -> None:
         """Segment ``result``: the means over the minibatches."""

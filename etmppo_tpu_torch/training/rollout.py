@@ -36,6 +36,7 @@ from ..ops import distributions
 from ..ops.gae import calc_advantages
 from ..ops.memory_index import build_memory_indices
 from ..parallel.mesh import DataMesh, shard_worker_tree
+from ..utils.profiling import PhaseClock
 
 
 def quantize_obs(obs: torch.Tensor) -> torch.Tensor:
@@ -72,12 +73,16 @@ class RolloutFn:
     each step: the actions, then the env's step draws (none for an env whose
     step draws nothing), then the reset draws of all workers. With a
     ``mesh``, ``env`` holds this rank's workers and draws for all
-    ``config.n_workers``."""
+    ``config.n_workers``. ``clock`` stamps the phases ``rollout.policy``,
+    ``rollout.env_step`` and ``rollout.env_reset`` of every step and
+    ``rollout.gae`` (``utils/profiling.PhaseClock``)."""
 
     def __init__(self, config: TrainConfig, env: TorchEnv,
                  model: ActorCriticModel, generator: torch.Generator,
-                 mesh: Optional[DataMesh] = None):
+                 mesh: Optional[DataMesh] = None,
+                 clock: Optional[PhaseClock] = None):
         self.config = config
+        self.clock = clock or PhaseClock()
         self.env = env
         self.model = model
         self.generator = generator
@@ -159,8 +164,10 @@ class RolloutFn:
             tape=torch.empty((W, T) + tuple(memory.shape[2:]), device=dev))
         infos = {k: torch.empty(W, T, device=dev) for k in self.env.info_keys}
 
+        clock = self.clock
         env_state, obs, e = state.env_state, state.obs, state.episode_step
         for t in range(T):
+            clock.stamp(opens=("rollout.policy",))
             logits, value, mem_item, slot, k_item, v_item = self.kv_step(
                 obs, k_cache, v_cache, e)
             memory[workers, slot] = mem_item
@@ -168,8 +175,12 @@ class RolloutFn:
             v_cache[workers, slot] = v_item
             actions, log_probs = self.sample_actions(logits, t)
 
+            clock.stamp(closes=("rollout.policy",),
+                        opens=("rollout.env_step",))
             env_state, obs_next, reward, done, info = self.env.step(
                 env_state, actions, self.step_draws())
+            clock.stamp(closes=("rollout.env_step",),
+                        opens=("rollout.env_reset",))
             reset_state, reset_obs = self.env.reset(self.reset_draws())
             env_state = select_state(done, reset_state, env_state)
             obs_next = torch.where(
@@ -179,6 +190,7 @@ class RolloutFn:
             memory.masked_fill_(done4, 0.0)
             k_cache = torch.where(done4, pe_k, k_cache)
             v_cache = torch.where(done4, pe_v, v_cache)
+            clock.stamp(closes=("rollout.env_reset",))
 
             out["obs"][:, t] = quantize_obs(obs) if cfg.obs_uint8 else obs
             out["actions"][:, t] = actions
@@ -194,12 +206,13 @@ class RolloutFn:
             e = torch.where(done, 0, e + 1)
 
         final_state = RolloutState(env_state, obs, e, memory)
-        # The reference bootstraps with the LAST step's memory indices.
-        last_indices = self.index_table[out["episode_steps"][:, -1]]
-        last_value = self._last_value(final_state, last_indices)
-        advantages = calc_advantages(out["rewards"], out["values"],
-                                     out["dones"], last_value, cfg.gamma,
-                                     cfg.lamda)
+        with clock.phase("rollout.gae"):
+            # The reference bootstraps with the LAST step's memory indices.
+            last_indices = self.index_table[out["episode_steps"][:, -1]]
+            last_value = self._last_value(final_state, last_indices)
+            advantages = calc_advantages(out["rewards"], out["values"],
+                                         out["dones"], last_value, cfg.gamma,
+                                         cfg.lamda)
         batch = RolloutBatch(
             obs=out["obs"], actions=out["actions"],
             log_probs=out["log_probs"], values=out["values"],

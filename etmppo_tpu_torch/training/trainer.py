@@ -26,7 +26,17 @@ pair), not a module global: ``pallas_backward`` without
 ``use_pallas_attention`` warns and takes the gathered-window loss, as in the
 JAX package. Each eager update's rollout and PPO update are the spans
 ``rollout`` and ``ppo_update`` of a profiler trace (``utils/profiling.py``);
-on the graph route a chunk is the span ``fused_chunk``.
+a chunk is the span ``launch``.
+
+The trainer's ``clock`` (``utils/profiling.PhaseClock``, on with the keyword
+``phase_clock``, which ``cli.py --profile`` sets) times its set-up
+(``setup.trainer``: the env, the model, the optimizer and the CUDA kernels,
+which are built and loaded here rather than at their first launch), each
+launch's host spans (``launch``: the warm-up, the capture and the
+instantiation, the replays, the drain and the log) and, inside every update,
+replayed or eager, its phases on the device: the rollout's policy, env
+step, reset paths and GAE, the PPO update's preparation, losses and
+optimizer steps, and the outputs. Its record is keyed by the update index.
 
 ``compute_dtype: bfloat16`` and ``obs_uint8`` train on either rollout,
 except ``obs_uint8`` with a host env, which ``HostRolloutFn`` refuses. Under
@@ -49,7 +59,6 @@ any ``num_devices`` that divides W.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 import warnings
@@ -64,7 +73,7 @@ from ..envs.factory import create_env
 from ..models.actor_critic import ActorCriticModel
 from ..parallel.mesh import (DataMesh, check_replicated, gather_worker_tree,
                              replicate_tree, shard_worker_tree)
-from ..utils.profiling import annotate
+from ..utils.profiling import PhaseClock
 from ..utils.runtime import debug_nans_enabled, name_modules, resolve_device
 from . import metrics as metrics_lib
 from .checkpoint import Checkpointer, save_model
@@ -99,12 +108,13 @@ class PPOTrainer:
     def __init__(self, config: TrainConfig, run_id: str = "run",
                  device="cuda", enable_metrics: bool = True,
                  grouped: bool = False, mesh: Optional[DataMesh] = None,
-                 env: Any = None):
+                 env: Any = None, phase_clock: bool = False):
         """With ``config.num_devices > 1``, ``mesh`` is this rank's
         (``parallel/mesh.py``) and the trainer runs on ``mesh.device``.
         ``env`` replaces the config's env (``envs.factory.create_env``): a
         host env of the caller's (a process pool of its own envs), which
-        the host rollout starts with this rank's workers."""
+        the host rollout starts with this rank's workers. ``phase_clock``
+        turns the trainer's clock on (``utils/profiling.PhaseClock``)."""
         mesh = _check_mesh(config, mesh)
         if config.pallas_backward and not config.use_pallas_attention:
             warnings.warn(
@@ -116,25 +126,45 @@ class PPOTrainer:
         self.mesh = mesh
         self.is_primary = mesh is None or mesh.is_primary
         self.device = resolve_device(device if mesh is None else mesh.device)
+        self.clock = PhaseClock(phase_clock, self.device)
+        with self.clock.setup_span("setup.trainer"):
+            self._build(config, grouped, mesh, env)
+            self.update = 0
+            self.writer = (
+                metrics_lib.MetricsWriter(config.summary_dir, run_id)
+                if enable_metrics and self.is_primary else None)
+            self.checkpointer = (Checkpointer(config.checkpoint_dir, run_id)
+                                 if config.checkpoint_interval > 0 else None)
+            self.episode_infos: deque = deque(maxlen=100)
+            self.env_steps_per_update = config.n_workers * config.worker_steps
 
-        if env is not None:
-            self.env = env
-        elif mesh is None:
-            self.env = create_env(config.environment, config.n_workers,
-                                  self.device)
-        else:
-            rows = mesh.worker_rows(config.n_workers)
-            self.env = create_env(config.environment, rows.stop - rows.start,
-                                  self.device, first_worker=rows.start,
-                                  draw_workers=config.n_workers)
+    def _build(self, config: TrainConfig, grouped: bool,
+               mesh: Optional[DataMesh], env: Any) -> None:
+        """The env, the model, the rollout, the update, the fused loop and
+        the CUDA kernels, each of the first two and the update's optimizer
+        and the kernels a span of the clock's set-up."""
+        clock = self.clock
+        with clock.setup_span("setup.env"):
+            if env is not None:
+                self.env = env
+            elif mesh is None:
+                self.env = create_env(config.environment, config.n_workers,
+                                      self.device)
+            else:
+                rows = mesh.worker_rows(config.n_workers)
+                self.env = create_env(config.environment,
+                                      rows.stop - rows.start, self.device,
+                                      first_worker=rows.start,
+                                      draw_workers=config.n_workers)
         self.max_episode_steps = self.env.max_episode_steps
-        self.model = ActorCriticModel(
-            config, self.env.observation_shape, self.env.action_branches,
-            self.max_episode_steps, device=self.device,
-            generator=torch.Generator().manual_seed(config.seed))
-        replicate_tree(self.model.state_dict(), mesh)
-        if debug_nans_enabled():
-            name_modules(self.model)
+        with clock.setup_span("setup.model"):
+            self.model = ActorCriticModel(
+                config, self.env.observation_shape, self.env.action_branches,
+                self.max_episode_steps, device=self.device,
+                generator=torch.Generator().manual_seed(config.seed))
+            replicate_tree(self.model.state_dict(), mesh)
+            if debug_nans_enabled():
+                name_modules(self.model)
         rollout_gen = torch.Generator(self.device).manual_seed(config.seed + 1)
         update_gen = torch.Generator(self.device).manual_seed(config.seed + 2)
         # Host envs (the C++ engine or the Python process pool) expose the
@@ -149,9 +179,12 @@ class PPOTrainer:
                 raise
         else:
             self.rollout_fn = RolloutFn(config, self.env, self.model,
-                                        rollout_gen, mesh=mesh)
-        self.update_fn = PPOUpdate(config, self.model, self.max_episode_steps,
-                                   update_gen, grouped=grouped, mesh=mesh)
+                                        rollout_gen, mesh=mesh, clock=clock)
+        with clock.setup_span("setup.optimizer"):
+            self.update_fn = PPOUpdate(config, self.model,
+                                       self.max_episode_steps, update_gen,
+                                       grouped=grouped, mesh=mesh,
+                                       clock=clock)
         self.rollout_state = self.rollout_fn.init_state()
         # Fusing updates needs the device rollout, as in the JAX package.
         self.fused_loop = self.fused_route = self._route_reason = None
@@ -160,14 +193,14 @@ class PPOTrainer:
                                                                 mesh)
             self.fused_loop = FusedTrainLoop(self.rollout_fn, self.update_fn,
                                              self.fused_route, mesh)
-
-        self.update = 0
-        self.writer = (metrics_lib.MetricsWriter(config.summary_dir, run_id)
-                       if enable_metrics and self.is_primary else None)
-        self.checkpointer = (Checkpointer(config.checkpoint_dir, run_id)
-                             if config.checkpoint_interval > 0 else None)
-        self.episode_infos: deque = deque(maxlen=100)
-        self.env_steps_per_update = config.n_workers * config.worker_steps
+        with clock.setup_span("setup.kernels"):
+            if self.device.type == "cuda":
+                upd = self.update_fn
+                if config.use_pallas_attention:
+                    for kernel in (upd.kernel, upd.backward_kernel):
+                        if kernel is not None:
+                            kernel.load()
+                clock.load()
 
     @staticmethod
     def _extract_episode_infos(dones: np.ndarray, infos: Dict[str, np.ndarray]
@@ -180,9 +213,17 @@ class PPOTrainer:
 
     def _record(self, outs: ChunkOutputs) -> List[Dict[str, float]]:
         """Logs a launch's updates (host side) from its packed outputs, two
-        device-to-host copies, and counts them."""
-        scalars = outs.scalars.cpu().numpy()        # (k, 6 + G + 2)
-        per_step = outs.per_step.cpu().numpy()      # (k, 1 + I, W, T)
+        device-to-host copies (with the clock on, a third: its stamps), and
+        counts them: the clock's spans ``launch.drain`` and ``launch.log``."""
+        with self.clock.span("launch.drain"):
+            scalars = outs.scalars.cpu().numpy()        # (k, 6 + G + 2)
+            per_step = outs.per_step.cpu().numpy()      # (k, 1 + I, W, T)
+            self.clock.drain(self.update)
+        with self.clock.span("launch.log"):
+            return self._log(outs, scalars, per_step)
+
+    def _log(self, outs: ChunkOutputs, scalars: np.ndarray,
+             per_step: np.ndarray) -> List[Dict[str, float]]:
         n, G = len(STAT_NAMES), len(outs.grad_keys)
         results = []
         for row, steps in zip(scalars, per_step):
@@ -221,7 +262,8 @@ class PPOTrainer:
 
     def train_chunk(self, k: int) -> List[Dict[str, float]]:
         """Runs k updates as one fused launch (``training/fused.py``) and
-        logs them: two device-to-host copies for the chunk."""
+        logs them: two device-to-host copies for the chunk. The launch is
+        the clock's span ``launch``."""
         if self.fused_loop is None:
             raise RuntimeError("a host env runs update by update: no fused "
                                "launch")
@@ -234,11 +276,10 @@ class PPOTrainer:
                 print(f"fused launches: {self.fused_route} route "
                       f"({self._route_reason})")
             self._route_reason = None
-        with (annotate("fused_chunk") if self.fused_route == "graph"
-              else contextlib.nullcontext()):
+        with self.clock.launch(self.update, k):
             self.rollout_state, outs = self.fused_loop(
                 self.rollout_state, self._schedule_values(k))
-        return self._record(outs)
+            return self._record(outs)
 
     def train_one_update(self) -> Dict[str, float]:
         """One eager update: the body of a fused launch, run alone."""
