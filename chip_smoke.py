@@ -13,7 +13,8 @@ Phases, each printing one line with its seconds:
                 its result line.
 2. build:       compiles the four window-attention kernels from
                 etmppo_tpu_torch/csrc/ (the per-sample forward and backward,
-                the grouped forward and backward), one nvcc process each,
+                the grouped forward and backward) and Mystery Path Grid's
+                reset kernel (mystery_path_reset.cu), one nvcc process each,
                 started together (a library built from the same source is
                 reused).
 3. kernel:      prints each kernel's registers, spills and static shared
@@ -43,7 +44,16 @@ Phases, each printing one line with its seconds:
                 S=736, P=128, L=96, D=768, H=6). Times kernel, plain
                 version, a library yardstick (gather +
                 scaled_dot_product_attention, and for the backward autograd
-                through that graph) and the bound.
+                through that graph) and the bound. reset-kernel: Mystery
+                Path Grid's auto-reset kernel (envs/mystery_path.py's
+                MysteryPathReset) against TorchEnv.reset_done's default
+                path, bit for bit, at W=32 on the flagship's reset params
+                (S=7) and with origin and goal shown (S=9): 200 steps of
+                random actions, each reset with an all-false, an all-true
+                and a random mask; then, with a quarter of the workers done,
+                the kernel, the default path, a library copy of the same
+                state and frame (clone) and the bound by bytes, each timed
+                inside a CUDA graph, as the rollout runs them.
 4. trainer:     two PPO updates of the MiniGrid-Memory flagship exactly as its
                 YAML says (pallas_backward: true) at full width (16 workers x
                 512 steps, TrXL 3 x 384, 5 epochs x 8 minibatches); each kernel
@@ -66,10 +76,12 @@ Phases, each printing one line with its seconds:
                 every update, so in fused launches of one update (the first
                 eager, then the graph's capture; the second a replay); each
                 kernel must launch exactly 48 times per update (a replay's
-                launches counted) and every logged stat must be finite; the
-                steady rate leaves out the first launch. A fresh trainer
-                resumes from the checkpoint bit for bit and takes one more
-                finite update; the saved .nn loads back to the same weights.
+                launches counted) and the reset kernel 512 times per update
+                (one launch a rollout step), and every logged stat must be
+                finite; the steady rate leaves out the first launch. A fresh
+                trainer resumes from the checkpoint bit for bit and takes one
+                more finite update (512 reset launches); the saved .nn loads
+                back to the same weights.
                 Then one more rollout and PPO update are timed apart, the
                 update with the plain and the kernel backward in turns.
 6. mortarmayhem: two PPO updates of the Mortar Mayhem Grid flagship exactly
@@ -286,7 +298,9 @@ Phases, each printing one line with its seconds:
                 it on, whose graph must hold the off graph's nodes plus one
                 per stamp; their steady launches by the host clock, 3 each
                 in turns; then a launch whose replays CUDA events time: each
-                update span must agree with its replay's events within 1%.
+                update span must agree with its replay's events within 1%,
+                and the capture record must count 512 reset-kernel launches
+                an update at Mystery Path Grid and none at the flagship.
                 Prints each phase's median over the launch's updates, the
                 launch's host spans, its idle time (the launch's host
                 seconds less its updates' spans) and 4 x (rollout +
@@ -325,6 +339,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from etmppo_tpu_torch.envs.core import TorchEnv
 
 REPLACES = {
     "window_attention_fwd": "etmppo_tpu/ops/pallas_window_attention.py:151",
@@ -396,6 +412,22 @@ MAIN_SHAPE = {"window_attention_fwd": "flagship",
               "window_attention_bwd": "flagship",
               "window_attention_fwd_grouped": "mortarmayhem",
               "window_attention_bwd_grouped": "mortarmayhem"}
+# The port's own kernel beside them: Mystery Path Grid's auto-reset, held
+# against TorchEnv.reset_done's default path at W workers for the reset
+# params of RESET_CASES (the first is the flagship's: its main shape).
+RESET_NAME = "mystery_path_reset"
+RESET_REPLACES = ("no pallas_call: the JAX rollout's auto-reset, "
+                  "etmppo_tpu/training/rollout.py:127-134 (every worker's "
+                  "env.reset kept by jnp.where)")
+RESET_CASES = {"flagship S7": None,      # MYSTERY_PATH_GRID's reset params
+               "shown S9": {"arena_size": 9, "cardinal_origin_choice": [1, 3],
+                            "show_origin": True, "show_goal": True,
+                            "reward_fall_off": -0.1,
+                            "reward_path_progress": 0.05}}
+RESET_WORKERS = 32
+RESET_STEPS = 200
+RESET_TIMED_SHARE = 0.25       # of the workers done at a timed call
+MYSTERY_RESETS = 512           # per update: one launch a rollout step
 
 
 def phase(name: str, start: float, detail: str = "") -> None:
@@ -415,6 +447,113 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return begin.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls captured into one CUDA
+    graph, as the rollout runs them, the graph replayed ``replays`` times
+    between CUDA events (no host launch cost in the time)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return begin.elapsed_time(end) / (iters * replays)
+
+
+def _bit_mismatches(got, want) -> torch.Tensor:
+    """Elements of ``got`` (a tensor or a tuple of them) whose bits differ
+    from ``want``'s, as a device tensor (no sync)."""
+    if isinstance(want, tuple):
+        return sum(_bit_mismatches(a, b) for a, b in zip(got, want))
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise RuntimeError(f"reset-kernel: {got.dtype} {tuple(got.shape)} "
+                           f"against {want.dtype} {tuple(want.shape)}")
+    if want.is_floating_point():
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return (got != want).sum()
+
+
+def reset_bound_ms(mask, draws, state, obs) -> float:
+    """Least time of one reset call by bytes: every output written, the
+    state and frame rows of the workers not done read, the draws of those
+    done and the mask read."""
+    W = mask.shape[0]
+    done = int(mask.sum())
+    out = sum(x.numel() * x.element_size() for x in (*state, obs))
+    drawn = sum(x.numel() * x.element_size() for x in draws)
+    n_bytes = out + out * (W - done) / W + drawn * done / W + mask.numel()
+    return n_bytes / H100_BYTES_PER_S * 1e3
+
+
+def measure_reset(device, gen: torch.Generator) -> dict:
+    """The reset kernel against the default path, bit for bit, then timed
+    (kernel, default path, library copy, bound), for each of RESET_CASES."""
+    from etmppo_tpu_torch.config import MYSTERY_PATH_GRID
+    from etmppo_tpu_torch.envs.mystery_path import MysteryPathGridEnv
+    out = {}
+    for case, params in RESET_CASES.items():
+        params = params or MYSTERY_PATH_GRID["environment"]["reset_params"]
+        env = MysteryPathGridEnv(params, RESET_WORKERS, device)
+        kernel = env.reset_kernel
+        kernel.launches = 0
+        g = torch.Generator(device).manual_seed(
+            int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
+        state, obs = env.reset(env.sample_reset_draws(g))
+        zeros = torch.zeros(RESET_WORKERS, dtype=torch.bool, device=device)
+        bad, ended = [], 0
+        for _ in range(RESET_STEPS):
+            actions = torch.randint(0, 4, (RESET_WORKERS, 1), generator=g,
+                                    device=device)
+            state, obs, _, done, _ = env.step(state, actions)
+            rand = done | (torch.rand(RESET_WORKERS, generator=g,
+                                      device=device) < 0.25)
+            for mask in (zeros, ~zeros, rand):
+                draws = env.sample_reset_draws(g)
+                want = TorchEnv.reset_done(env, mask, draws, state, obs)
+                got = env.reset_done(mask, draws, state, obs)
+                bad.append(_bit_mismatches(got, want))
+            ended += rand.sum()
+            state, obs = got
+        bad = torch.stack(bad).cpu()
+        checked = kernel.launches
+        if bad.any() or checked != 3 * RESET_STEPS:
+            first = int(bad.nonzero()[0, 0]) if bad.any() else -1
+            raise RuntimeError(
+                f"reset-kernel, {case}: {int(bad.sum())} elements differ from "
+                f"the default path (first at call {first}), "
+                f"{checked} launches for {3 * RESET_STEPS} calls")
+        mask = torch.rand(RESET_WORKERS, generator=g,
+                          device=device) < RESET_TIMED_SHARE
+        draws = env.sample_reset_draws(g)
+        m = dict(max_abs_err=0.0, mismatched_elements=0, checked=checked,
+                 ended=int(ended), timed_done=int(mask.sum()))
+        m["ms"] = graph_ms(lambda: env.reset_done(mask, draws, state, obs))
+        m["plain_ms"] = graph_ms(
+            lambda: TorchEnv.reset_done(env, mask, draws, state, obs))
+        m["library_ms"] = graph_ms(
+            lambda: [x.clone() for x in (*state, obs)])
+        m["bound_ms"], m["bound_by"] = (
+            reset_bound_ms(mask, draws, state, obs), "bytes")
+        m["launches"] = checked
+        out[case] = m
+        del env, state, obs, got, want
+    return out
 
 
 def window_inputs(gen: torch.Generator, device, shape: str):
@@ -944,10 +1083,11 @@ def _assert_same(a, b, where: str) -> None:
         raise RuntimeError(found[0])
 
 
-def run_mysterypath(device, k) -> list:
+def run_mysterypath(device, k) -> tuple:
     """Phase 5: Mystery Path Grid through run_training with checkpoints,
     resume, and the saved model; returns the launches of the counted run, in
-    the order of NAMES."""
+    the order of NAMES, and the reset kernel's launches there and in the
+    resumed update."""
     from etmppo_tpu_torch.config import MYSTERY_PATH_GRID, config_from_dict
     from etmppo_tpu_torch.training.checkpoint import load_model
     from etmppo_tpu_torch.training.trainer import PPOTrainer
@@ -962,19 +1102,23 @@ def run_mysterypath(device, k) -> list:
         torch.cuda.synchronize()
         phase("mysterypath-setup", t)
         t = time.perf_counter()
-        for kernel in k.values():
+        for kernel in (*k.values(), trainer.env.reset_kernel):
             kernel.launches = 0
         result = trainer.run_training()
         launches = [k[n].launches for n in NAMES]
         check_launches(per_sample, MYSTERY_LAUNCHES * UPDATES, "mysterypath")
         check_launches(grouped, 0, "mysterypath")
+        check_launches((trainer.env.reset_kernel,), MYSTERY_RESETS * UPDATES,
+                       "mysterypath")
+        resets = trainer.env.reset_kernel.launches
         trainer.close()
         n_rows = _finite_csv(trainer.writer.csv_path)
         if n_rows != UPDATES:
             raise RuntimeError(f"mysterypath: {n_rows} logged updates")
         phase("mysterypath", t,
               f"{UPDATES} updates, launches fwd {launches[0]} bwd "
-              f"{launches[1]}; env-steps/s {result['env_steps_per_second']:.0f}"
+              f"{launches[1]} reset {resets}; env-steps/s "
+              f"{result['env_steps_per_second']:.0f}"
               f" (steady {result['env_steps_per_second_steady']:.0f}: without"
               " the first launch, update 1 and the graph's capture; update 2"
               " a replay)")
@@ -986,13 +1130,16 @@ def run_mysterypath(device, k) -> list:
             raise RuntimeError(f"resume: at update {resumed.update}")
         _assert_same(resumed._training_state(), trainer._training_state(),
                      "resume: state")
-        for kernel in k.values():
+        for kernel in (*k.values(), resumed.env.reset_kernel):
             kernel.launches = 0
         stats = resumed.train_one_update()
         bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
         if bad:
             raise RuntimeError(f"resumed update: non-finite stats {bad}")
         check_launches(per_sample, MYSTERY_LAUNCHES, "resumed update")
+        check_launches((resumed.env.reset_kernel,), MYSTERY_RESETS,
+                       "resumed update")
+        resets += resumed.env.reset_kernel.launches
         model, _ = load_model(os.path.join(tmp, "mpg.nn"), device)
         _assert_same(model.state_dict(), trainer.model.state_dict(), "model")
         phase("mysterypath-resume", t,
@@ -1001,7 +1148,7 @@ def run_mysterypath(device, k) -> list:
         phase("mysterypath-split", *split_update(resumed, {
             "plain backward": (per_sample[0], None),
             "kernel backward": per_sample})[:2])
-    return launches
+    return launches, resets
 
 
 def update_drift(trainer, batch, pair, deterministic: bool = False) -> tuple:
@@ -1679,7 +1826,7 @@ class StubGridState(NamedTuple):
     k: torch.Tensor      # (W,) int64 episode count
 
 
-class StubGridTwin:
+class StubGridTwin(TorchEnv):
     """StubGridEnv's dynamics as a batched env on the device (the port's
     TorchEnv protocol), for the device rollout: worker w has identity
     w % STUB_PER_PROC. Episode counts live on the env, since the rollout's
@@ -3367,9 +3514,12 @@ def run_phase_clock(device, rates: int = 0) -> dict:
             first_off = launch_seconds(off, 1)[0]
             nodes_off = off.fused_loop.capture["nodes"]
             stamps = clock_stamps(off.config)
+            want_resets = (off.config.worker_steps
+                           if name == "MYSTERY_PATH_GRID" else 0)
             on = clock_trainer(name, tmp, device, True)
             first_on = launch_seconds(on, 1)[0]
             capture = dict(on.fused_loop.capture)
+            reset_kernel = on.env.reset_kernel
             turns = {False: [], True: []}       # launches in turns
             for clock_on in CLOCK_TURNS:
                 turns[clock_on] += launch_seconds(on if clock_on else off, 1)
@@ -3389,7 +3539,8 @@ def run_phase_clock(device, rates: int = 0) -> dict:
             parts = clock_breakdown(clock, u0, k)
             setup = dict(clock.setup)
             first_launch = dict(clock.launches[0])
-            del on, loop, timed_graph
+            resets = reset_kernel.launches if reset_kernel else 0
+            del on, loop, timed_graph, reset_kernel
             torch.cuda.empty_cache()
         agree = max(abs(s - e) / e for s, e in zip(span_s, event_s))
         p = parts["phases"]
@@ -3404,10 +3555,12 @@ def run_phase_clock(device, rates: int = 0) -> dict:
             on_launch_s=turns[True],
             off_rate=k * steps / off_launch, first_launch_off_s=first_off,
             first_launch_on_s=first_on, first_launch=first_launch,
-            setup=setup)
+            setup=setup, reset_launches=resets,
+            capture_reset_launches=capture["reset_launches"])
         phase("phase-clock", t, f"{name}: nodes off {nodes_off}, on "
               f"{capture['nodes']} (+{capture['nodes'] - nodes_off}, "
-              f"{stamps} stamps); update span vs CUDA events max "
+              f"{stamps} stamps), reset launches {capture['reset_launches']}"
+              f" an update, {resets} in the clock-on trainer; update span vs CUDA events max "
               f"{agree * 100:.3f}%; phases (median s) " + ", ".join(
                   f"{n} {v:.4f}" for n, v in p.items())
               + f"; launch {parts['launch']['launch']:.4f}s, idle "
@@ -3428,6 +3581,9 @@ def run_phase_clock(device, rates: int = 0) -> dict:
                             f"not {nodes_off} + {stamps}")
         if agree > 0.01:
             problems.append(f"update spans {span_s} vs events {event_s}")
+        if capture["reset_launches"] != want_resets:
+            problems.append(f"{capture['reset_launches']} reset launches in "
+                            f"a captured update, not {want_resets}")
         if problems:
             raise RuntimeError(f"phase-clock {name}: " + "; ".join(problems))
         if rates:
@@ -3529,8 +3685,10 @@ def main() -> int:
     phase("device", start, f"{kind}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
+    from etmppo_tpu_torch.envs.mystery_path import MysteryPathReset
     from etmppo_tpu_torch.ops import window_attention as wa
     k = {name: getattr(wa, name) for name in NAMES}
+    reset_kernel = MysteryPathReset()
 
     t = time.perf_counter()
 
@@ -3540,8 +3698,8 @@ def main() -> int:
         path = kernel.build()
         return (f"{path.name} {time.perf_counter() - begin:.2f}s "
                 f"({'reused' if existed else 'nvcc'})")
-    with ThreadPoolExecutor(max_workers=len(k)) as pool:
-        built = list(pool.map(timed_build, k.values()))
+    with ThreadPoolExecutor(max_workers=len(k) + 1) as pool:
+        built = list(pool.map(timed_build, [*k.values(), reset_kernel]))
     phase("build", t, "; ".join(built))
 
     t = time.perf_counter()
@@ -3560,6 +3718,10 @@ def main() -> int:
             line += f"; plans ({', '.join(fields)}) " + ", ".join(
                 f"{shape} {tuple(plan)}" for shape, plan in planned.items())
         print(line, flush=True)
+    print(f"{RESET_NAME}: " + "; ".join(
+        f"{r['function']} {r['registers']} registers, {r['spill_bytes']} "
+        f"bytes spilled, {r['static_smem']} bytes static smem"
+        for r in reset_kernel.resources()), flush=True)
     gen = torch.Generator().manual_seed(0)
     edge = {}
     for label in EDGE_CASES:
@@ -3576,10 +3738,22 @@ def main() -> int:
         f"{shape} {describe(name, m)}" for shape, by_name in measured.items()
         for name, m in by_name.items()))
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    reset = measure_reset(device, gen)
+    phase("reset-kernel", t, "; ".join(
+        f"{case}: {m['checked']} calls bit-identical to the default path "
+        f"({m['ended']} random-mask resets); {m['timed_done']} of "
+        f"{RESET_WORKERS} done: ms {m['ms']:.4f} plain {m['plain_ms']:.4f} "
+        f"library {m['library_ms']:.4f} bound {m['bound_ms']:.4f} "
+        f"({m['bound_by']})" for case, m in reset.items()))
+    torch.cuda.empty_cache()
 
     launches = {"flagship": run_flagship(device, k)}
     torch.cuda.empty_cache()
-    launches["mysterypath"] = run_mysterypath(device, k)
+    reset_launches = {"reset-kernel": sum(m["launches"]
+                                          for m in reset.values())}
+    launches["mysterypath"], reset_launches["mysterypath"] = \
+        run_mysterypath(device, k)
     torch.cuda.empty_cache()
     launches["mortarmayhem"] = run_mortarmayhem(device, k)
     torch.cuda.empty_cache()
@@ -3616,7 +3790,9 @@ def main() -> int:
                     MINIGRID_FLAGSHIP["n_workers"]
                     * MINIGRID_FLAGSHIP["worker_steps"])
     torch.cuda.empty_cache()
-    run_phase_clock(device)
+    clock = run_phase_clock(device)
+    reset_launches["phase-clock"] = clock["MYSTERY_PATH_GRID"][
+        "reset_launches"]
     check_float32("before the result line")
 
     entries = []
@@ -3640,6 +3816,24 @@ def main() -> int:
                                   "library_ms", "max_abs_err")}
                          for shape, m in measured.items()},
         })
+    main_case = next(iter(RESET_CASES))
+    entries.append({
+        "name": RESET_NAME, "route": "cuda",
+        "source": os.path.relpath(reset_kernel.source, os.getcwd()),
+        "replaces": RESET_REPLACES,
+        "launches": sum(reset_launches.values()),
+        "launches_by_path": reset_launches,
+        "max_abs_err": 0.0, "mismatched_elements": 0,
+        **{key: reset[main_case][key] for key in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": "clone of the state and frame, the copy-through floor",
+        "timed_in": "a CUDA graph of 20 calls",
+        "main_shape": main_case,
+        "by_shape": {case: {key: m[key] for key in
+                            ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "max_abs_err", "timed_done")}
+                     for case, m in reset.items()},
+    })
     print(json.dumps({"kernels": entries}))
     phase("total", start)
     print(smi)

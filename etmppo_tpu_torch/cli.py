@@ -18,7 +18,9 @@ writes a torch.profiler Chrome trace of training to
 record it writes beside the trace as ``DIR/<run-id>/phases.json``: each
 update's phase seconds on the device (the rollout's policy, env step,
 reset paths and GAE, the PPO update's preparation, losses and steps, the
-outputs), each launch's host spans and the trainer's set-up spans.
+outputs), each launch's host spans, the trainer's set-up spans and
+``capture``, the fused loop's capture record (its seconds, graph nodes,
+pool bytes and env reset-kernel launches; empty on the eager route).
 ``--seeds N``
 trains seeds ``seed .. seed + N - 1`` one after another as
 ``<run-id>_s<seed>`` and prints the mean and std of their final
@@ -146,8 +148,10 @@ def _train_seeds(args, mesh=None):
                   if args.profile and primary else contextlib.nullcontext()):
                 result = trainer.run_training()
             if args.profile and primary:
-                trainer.clock.write(os.path.join(args.profile, run_id,
-                                                 PHASES_FILE))
+                loop = trainer.fused_loop
+                trainer.clock.write(
+                    os.path.join(args.profile, run_id, PHASES_FILE),
+                    capture=dict(loop.capture) if loop is not None else {})
         finally:
             trainer.close()
         results.append(result)

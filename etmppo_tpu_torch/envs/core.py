@@ -21,10 +21,13 @@ tensors with a leading worker axis, on the env's device.
 * ``reset(draws) -> (state, obs)``;
 * ``step(state, actions, draws=None) -> (state, obs, reward, done, info)``:
   ``draws`` from ``sample_step_draws``; ``reward`` is the training reward,
-  ``info`` per-episode statistics read where ``done``.
-
-Auto-reset lives in the rollout (``training/rollout.py``), with
-``select_state``.
+  ``info`` per-episode statistics read where ``done``;
+* ``reset_done(done, draws, state, obs) -> (state, obs)``: the auto-reset
+  of the device rollout (``training/rollout.py``): the workers where
+  ``done`` start a new episode from ``draws``, the others keep ``state`` and
+  ``obs``. The default resets all workers and keeps the reset where
+  ``done`` (``select_state``); an env may do the same in a kernel of its own
+  (Mystery Path Grid on CUDA), which it lists in ``kernels``.
 """
 from __future__ import annotations
 
@@ -51,6 +54,8 @@ class TorchEnv:
     n_workers: int
     device: torch.device
     draw_workers: Optional[int] = None      # set by envs/factory.create_env
+    kernels: Tuple[Any, ...] = ()           # its CUDA kernels (_CudaKernel)
+    reset_kernel: Any = None                # the one of them in reset_done
 
     @property
     def draw_width(self) -> int:
@@ -67,3 +72,11 @@ class TorchEnv:
 
     def step(self, state: Any, actions: torch.Tensor, draws: Any = None):
         raise NotImplementedError
+
+    def reset_done(self, done: torch.Tensor, draws: Any, state: Any,
+                   obs: torch.Tensor):
+        reset_state, reset_obs = self.reset(draws)
+        state = select_state(done, reset_state, state)
+        obs = torch.where(done.reshape((-1,) + (1,) * (obs.dim() - 1)),
+                          reset_obs, obs)
+        return state, obs

@@ -15,6 +15,11 @@ probability 1/2, lateral +1 or -1 with 1/4 each (clipped to the arena), never
 backward, and forced forward once the steps left equal the forward distance
 left. Its ``3 * S - 1`` moves, the edge and the starting lateral cell are the
 reset draws (``MysteryPathResetDraws``).
+
+The rollout's auto-reset (``reset_done``) is on CUDA one kernel,
+``csrc/mystery_path_reset.cu`` (``MysteryPathReset``), that rebuilds only the
+workers whose episode ended and copies the others through; elsewhere it is
+``TorchEnv``'s reset of all workers kept where done. Both give the same bits.
 """
 from __future__ import annotations
 
@@ -23,11 +28,14 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..ops.window_attention import _PACKAGE_DIR, _CudaKernel
 from .core import TorchEnv
 
 # actions: 0 up(-y), 1 right(+x), 2 down(+y), 3 left(-x)
 MOVE_OFFSETS = np.array([[0, -1], [1, 0], [0, 1], [-1, 0]], np.int64)
 INT32_MAX = 2 ** 31 - 1
+OBS_SIDE = 84
+RESET_SOURCE = _PACKAGE_DIR / "csrc" / "mystery_path_reset.cu"
 
 
 class MysteryPathResetDraws(NamedTuple):
@@ -51,6 +59,59 @@ class MysteryPathState(NamedTuple):
     length: torch.Tensor         # (W,) int64
 
 
+class MysteryPathReset(_CudaKernel):
+    """The auto-reset kernel (``csrc/mystery_path_reset.cu``), built by nvcc
+    into ``_build`` like the window-attention kernels: ``reset(done, draws,
+    state, obs, show_origin, show_goal) -> (state, obs)``, fresh tensors, on
+    the current stream. The arena's size is read from ``state.on_path``."""
+
+    symbol = "mystery_path_reset"
+    n_pointers = 4 + 2 * (len(MysteryPathState._fields) + 1)
+    n_ints = 4
+
+    def __init__(self, source=RESET_SOURCE):
+        super().__init__(source)
+
+    def __call__(self, done: torch.Tensor, draws: MysteryPathResetDraws,
+                 state: MysteryPathState, obs: torch.Tensor,
+                 show_origin: bool, show_goal: bool):
+        W, S = state.on_path.shape[0], state.on_path.shape[-1]
+        if not 1 <= S <= OBS_SIDE:
+            raise ValueError(f"mystery_path_reset: arena_size {S} is not in "
+                             f"[1, {OBS_SIDE}]")
+        want = dict(
+            done=(done, torch.bool, (W,)),
+            edge=(draws.edge, torch.int64, (W,)),
+            lateral0=(draws.lateral0, torch.int64, (W,)),
+            moves=(draws.moves, torch.int64, (W, 3 * S - 1)),
+            obs=(obs, torch.float32, (W, OBS_SIDE, OBS_SIDE, 3)))
+        for name, x in zip(MysteryPathState._fields, state):
+            shape = ((W, S, S) if name in ("on_path", "progress_idx")
+                     else (W, 2) if name in ("origin", "goal", "pos",
+                                             "fall_pos") else (W,))
+            dtype = (torch.bool if name == "on_path" else torch.float32
+                     if name == "reward_sum" else torch.int64)
+            want[name] = (x, dtype, shape)
+        for name, (x, dtype, shape) in want.items():
+            if (x.dtype != dtype or tuple(x.shape) != shape
+                    or not x.is_contiguous()):
+                raise ValueError(
+                    f"mystery_path_reset: {name} must be a contiguous "
+                    f"{dtype} tensor of shape {shape}, got {x.dtype} "
+                    f"{tuple(x.shape)} with strides {x.stride()}")
+        for name, (x, _, _) in want.items():
+            if x.device.type != "cuda" or x.device != done.device:
+                raise ValueError(
+                    f"mystery_path_reset: {name} must be on the CUDA device "
+                    f"of done, got {x.device} and {done.device}")
+        out_state = MysteryPathState(*(torch.empty_like(x) for x in state))
+        out_obs = torch.empty_like(obs)
+        self._launch([x.data_ptr() for x in (
+            done, *draws, *state, obs, *out_state, out_obs)],
+            (W, S, int(show_origin), int(show_goal)), done.device)
+        return out_state, out_obs
+
+
 class MysteryPathGridEnv(TorchEnv):
     info_keys = ("reward", "length", "success")
     max_episode_steps = 128
@@ -68,18 +129,21 @@ class MysteryPathGridEnv(TorchEnv):
         self.r_progress = float(p.get("reward_path_progress", 0.0))
         self.n_workers = n_workers
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            self.reset_kernel = MysteryPathReset()
+            self.kernels = (self.reset_kernel,)
 
         S = self.size
-        tile = 84 // S
-        off = (84 - tile * S) // 2
+        tile = OBS_SIDE // S
+        off = (OBS_SIDE - tile * S) // 2
         # generous bound on path length (the biased walk crosses in <= ~3S)
         self.max_path_len = 3 * S
-        self.observation_shape: Tuple[int, ...] = (84, 84, 3)
+        self.observation_shape: Tuple[int, ...] = (OBS_SIDE, OBS_SIDE, 3)
         self.action_branches: Tuple[int, ...] = (4,)
 
         as_t = lambda a, dtype=torch.int64: torch.as_tensor(
             a, dtype=dtype, device=self.device)
-        yy, xx = np.mgrid[0:84, 0:84]
+        yy, xx = np.mgrid[0:OBS_SIDE, 0:OBS_SIDE]
         in_arena = ((xx >= off) & (xx < off + S * tile)
                     & (yy >= off) & (yy < off + S * tile))
         cell_x = np.clip((xx - off) // tile, 0, S - 1)
@@ -189,6 +253,13 @@ class MysteryPathGridEnv(TorchEnv):
             fall_timer=zeros, t=zeros,
             reward_sum=torch.zeros(W, device=self.device), length=zeros)
         return state, self._observe(state)
+
+    def reset_done(self, done: torch.Tensor, draws: MysteryPathResetDraws,
+                   state: MysteryPathState, obs: torch.Tensor):
+        if self.device.type != "cuda":
+            return super().reset_done(done, draws, state, obs)
+        return self.reset_kernel(done, draws, state, obs, self.show_origin,
+                                 self.show_goal)
 
     def step(self, state: MysteryPathState, actions: torch.Tensor,
              draws=None):

@@ -52,10 +52,11 @@ update writes its parameters' ``replica_digest`` into row k of a (K, 2)
 buffer, and the chunk's end gathers them once and raises naming the first
 update whose digests differ between the ranks (``check_replicated``).
 
-The window-attention wrappers count their launches in Python, which a
-replay does not run. The loop takes each kernel's launches during a
-capture, takes them back afterwards (a capture runs nothing), and adds them
-at every replay, so the counts stay the number of kernels that ran. The
+The window-attention wrappers and an env's kernels (Mystery Path Grid's
+reset) count their launches in Python, which a replay does not run. The loop
+takes each kernel's launches during a capture, takes them back afterwards (a
+capture runs nothing), and adds them at every replay, so the counts stay the
+number of kernels that ran. The
 collectives run between the replays, so the mesh's traffic counts are true.
 """
 from __future__ import annotations
@@ -231,7 +232,8 @@ class FusedTrainLoop(Segments):
     them, and the loop is the ``Segments`` runner of ``mesh_update``. After
     a capture, ``capture`` holds its seconds and the instantiation's (the
     clock's spans ``launch.capture`` and ``launch.instantiate``), the
-    graph's nodes and the bytes its memory pool reserved; under a mesh
+    graph's nodes, the bytes its memory pool reserved and the env's reset
+    kernel launches it holds (``reset_launches``); under a mesh
     their sums over the segments, and each segment's in ``segments``. The
     loop runs the clock's spans ``launch.warm_up`` and ``launch.replays``
     and, after each update, ``clock.store``; ``clock`` is the update's
@@ -365,8 +367,15 @@ class FusedTrainLoop(Segments):
         self._close_update()
 
     def _kernels(self) -> list:
+        """The CUDA kernels whose launches a capture moves to the replays:
+        the update's window-attention pair and the env's (its reset)."""
         upd = self.update_fn
-        return [k for k in {upd.kernel, upd.backward_kernel} if k is not None]
+        return ([k for k in {upd.kernel, upd.backward_kernel}
+                 if k is not None] + list(self.rollout_fn.env.kernels))
+
+    def _reset_launches(self, launches: Dict) -> int:
+        """Of a capture's kernel ``launches``, the env's reset kernel's."""
+        return launches.get(self.rollout_fn.env.reset_kernel, 0)
 
     def _capture(self) -> None:
         if self.mesh is not None:
@@ -389,13 +398,14 @@ class FusedTrainLoop(Segments):
         with self.clock.span("launch.instantiate", always=True) as built:
             graph.instantiate()
             torch.cuda.synchronize(device)
-        self.capture = dict(
-            capture_s=captured.seconds, instantiate_s=built.seconds,
-            nodes=graph_nodes(graph),
-            pool_bytes=torch.cuda.memory_reserved(device) - reserved)
         # A capture launches nothing: its counts move to every replay.
         self._replay_launches = {kernel: kernel.launches - n
                                  for kernel, n in before.items()}
+        self.capture = dict(
+            capture_s=captured.seconds, instantiate_s=built.seconds,
+            nodes=graph_nodes(graph),
+            pool_bytes=torch.cuda.memory_reserved(device) - reserved,
+            reset_launches=self._reset_launches(self._replay_launches))
         for kernel, n in before.items():
             kernel.launches = n
         self._graph = graph
@@ -411,7 +421,8 @@ class FusedTrainLoop(Segments):
         finally:
             self._mode = "eager"
         segments = self.capture["segments"].values()
-        for key in ("capture_s", "instantiate_s", "nodes", "pool_bytes"):
+        for key in ("capture_s", "instantiate_s", "nodes", "pool_bytes",
+                    "reset_launches"):
             self.capture[key] = sum(c[key] for c in segments)
 
     def segment(self, name: str, fn, generators=()) -> None:
@@ -452,12 +463,14 @@ class FusedTrainLoop(Segments):
         with self.clock.span("launch.instantiate", always=True) as built:
             graph.instantiate()
             torch.cuda.synchronize(device)
+        self._segment_launches[name] = {kernel: kernel.launches - n
+                                        for kernel, n in before.items()}
         self.capture["segments"][name] = dict(
             capture_s=captured.seconds, instantiate_s=built.seconds,
             nodes=graph_nodes(graph),
-            pool_bytes=torch.cuda.memory_reserved(device) - reserved)
-        self._segment_launches[name] = {kernel: kernel.launches - n
-                                        for kernel, n in before.items()}
+            pool_bytes=torch.cuda.memory_reserved(device) - reserved,
+            reset_launches=self._reset_launches(
+                self._segment_launches[name]))
         for kernel, n in before.items():
             kernel.launches = n
         if self._pool is None:

@@ -9,8 +9,8 @@ windows from (pre-rollout snapshot, tape).
 Step order: store obs / episode step -> policy forward -> write the memory
 item at ``(w, episode_step)`` -> sample actions -> env step (with its step
 draws) -> where done:
-reset the env, zero the worker's memory, reset its K/V caches to the
-PE-only projections and its episode step to 0.
+reset the env (``env.reset_done``), zero the worker's memory, reset its K/V
+caches to the PE-only projections and its episode step to 0.
 
 With ``obs_uint8`` the batch stores each observation as
 ``quantize_obs(obs)``, a quarter of the bytes; the policy still sees the
@@ -29,7 +29,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import TrainConfig
-from ..envs.core import TorchEnv, select_state
+from ..envs.core import TorchEnv
 from ..models.actor_critic import ActorCriticModel
 from ..models.kv_cache import KVCacheStep
 from ..ops import distributions
@@ -181,11 +181,8 @@ class RolloutFn:
                 env_state, actions, self.step_draws())
             clock.stamp(closes=("rollout.env_step",),
                         opens=("rollout.env_reset",))
-            reset_state, reset_obs = self.env.reset(self.reset_draws())
-            env_state = select_state(done, reset_state, env_state)
-            obs_next = torch.where(
-                done.reshape((W,) + (1,) * (obs_next.dim() - 1)), reset_obs,
-                obs_next)
+            env_state, obs_next = self.env.reset_done(
+                done, self.reset_draws(), env_state, obs_next)
             done4 = done[:, None, None, None]
             memory.masked_fill_(done4, 0.0)
             k_cache = torch.where(done4, pe_k, k_cache)

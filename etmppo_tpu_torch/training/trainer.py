@@ -200,6 +200,8 @@ class PPOTrainer:
                     for kernel in (upd.kernel, upd.backward_kernel):
                         if kernel is not None:
                             kernel.load()
+                for kernel in getattr(self.env, "kernels", ()):
+                    kernel.load()
                 clock.load()
 
     @staticmethod

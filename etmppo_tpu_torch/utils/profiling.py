@@ -29,9 +29,11 @@ its parent:
 * device, one set per update (``PHASES``): ``update``, from the first stamp
   to the last; in it ``rollout`` (``rollout.policy``: the K/V-cache step,
   the cache writes and the sampling; ``rollout.env_step``: the step draws
-  and ``env.step``; ``rollout.env_reset``: the reset draws, ``env.reset``
-  of all workers, ``select_state``, the obs ``where`` and the memory and K/V
-  cache resets; ``rollout.gae``: the bootstrap value and GAE),
+  and ``env.step``; ``rollout.env_reset``: the reset draws,
+  ``env.reset_done`` (by default ``env.reset`` of all workers,
+  ``select_state`` and the obs ``where``; at Mystery Path Grid on CUDA one
+  kernel) and the memory and K/V cache resets; ``rollout.gae``: the
+  bootstrap value and GAE),
   ``ppo_update`` (``ppo_update.prepare``; ``ppo_update.loss``: every
   minibatch's forward and backward; ``ppo_update.step``: clipping, the norm
   groups and AdamW) and ``outputs`` (the packing and the state write-back).
@@ -343,8 +345,8 @@ class PhaseClock:
                     launches={u: dict(r) for u, r in self.launches.items()},
                     updates={u: r for u, r in self.updates.items()})
 
-    def write(self, path: str) -> None:
-        """The record as JSON (``phases.json``)."""
+    def write(self, path: str, **extra) -> None:
+        """The record and ``extra`` entries as JSON (``phases.json``)."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
-            json.dump(self.record(), f, indent=1)
+            json.dump(dict(self.record(), **extra), f, indent=1)

@@ -186,3 +186,36 @@ def test_factory_builds_the_flagship_env():
     # the JAX package.
     with pytest.raises(ImportError, match="memory-gym"):
         create_env(EnvConfig(type="MysteryPath-Grid-host"), 4, "cpu")
+
+
+def test_reset_done_matches_the_jax_rollouts_auto_reset(envs):
+    """64 random steps, each followed by the auto-reset: JAX's rollout
+    resets every worker from its keys and keeps the reset where done (a
+    ``where`` over the state and the frame); the port's ``reset_done`` is
+    handed the draws of the same keys. The mask is done or'ed with a random
+    fifth of the workers, so resets come at every step."""
+    jenv, tenv, jstate, jobs, tstate, tobs = envs
+    step = jax.jit(jax.vmap(jenv.step))
+    reset = jax.jit(jax.vmap(jenv.reset))
+
+    @jax.jit
+    def keep(mask, new, old):
+        return jax.tree.map(lambda a, b: jnp.where(
+            mask.reshape((W,) + (1,) * (b.ndim - 1)), a, b), new, old)
+
+    rng = np.random.default_rng(1)
+    step_keys = jax.random.split(jax.random.PRNGKey(0), W)
+    resets = 0
+    for t in range(64):
+        a = rng.integers(0, 4, (W, 1))
+        jstate, jobs, _, jd, _ = step(jstate, jnp.asarray(a), step_keys)
+        tstate, tobs, _, td, _ = tenv.step(tstate, torch.as_tensor(a))
+        mask = np.asarray(jd) | (rng.random(W) < 0.2)
+        keys = jax.random.split(jax.random.PRNGKey(1000 + t), W)
+        jstate, jobs = keep(jnp.asarray(mask), reset(keys), (jstate, jobs))
+        tstate, tobs = tenv.reset_done(torch.as_tensor(mask),
+                                       _jax_draws(jenv, keys), tstate, tobs)
+        np.testing.assert_array_equal(tobs.numpy(), np.asarray(jobs))
+        resets += int(mask.sum())
+    _assert_state_equal(jstate, tstate)
+    assert resets > 64 * W // 8

@@ -42,7 +42,8 @@ LAUNCH_SPANS = {"launch", "launch.drain", "launch.log"}
 CAPTURE_SPANS = {"launch.warm_up", "launch.capture", "launch.instantiate"}
 SETUP_SPANS = {"setup.trainer", "setup.env", "setup.model",
                "setup.optimizer", "setup.kernels"}
-CAPTURE_KEYS = {"capture_s", "instantiate_s", "nodes", "pool_bytes"}
+CAPTURE_KEYS = {"capture_s", "instantiate_s", "nodes", "pool_bytes",
+                "reset_launches"}
 
 
 def _raw(name, tmp_path, **overrides):
@@ -159,7 +160,7 @@ def test_graph_route_on_a_stand_in(on, tmp_path, monkeypatch):
     _stand_in_graphs(monkeypatch, trainer)
     assert trainer.train_chunk(3) + trainer.train_chunk(2) == want
     capture = trainer.fused_loop.capture
-    assert set(capture) == CAPTURE_KEYS
+    assert set(capture) == CAPTURE_KEYS and capture["reset_launches"] == 0
     assert capture["capture_s"] >= 0 and capture["instantiate_s"] >= 0
     clock = trainer.clock
     if not on:
@@ -206,3 +207,4 @@ def test_cli_profile_writes_the_phases(tmp_path):
     assert sorted(record["updates"]) == ["0", "1"]
     assert set(record["launches"]["0"]) == LAUNCH_SPANS | {"updates"}
     assert set(record["setup"]) == SETUP_SPANS
+    assert record["capture"] == {}              # the eager route captures none
