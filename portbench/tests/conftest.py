@@ -48,4 +48,5 @@ def load(name):
 
 @pytest.fixture
 def tiny_cell():
-    return lambda name: tiny(load(name))
+    """``tiny`` of the cell of that name, or of a cell composed in a test."""
+    return lambda cell: tiny(load(cell) if isinstance(cell, str) else cell)

@@ -1,6 +1,7 @@
 """The harness finds a cell's files by name, prints the contract's last
 line in a small CPU rehearsal, and its comparison passes the program and
 fails its control and the planted faults."""
+import copy
 import json
 import subprocess
 import sys
@@ -188,6 +189,41 @@ def test_a_hook_the_program_lacks_stops_the_run():
 def test_planted_fault_fails_serving(tiny_cell):
     result = rehearse(tiny_cell("minigrid_s9.serve64"),
                       faults=[altered_answer])
+    assert result["correct"] is False
+
+
+def mortar_mayhem_cell():
+    """A Mortar Mayhem Grid training cell composed here and not in
+    ``BENCHMARK.json``: the port's published configuration under the
+    ``train_launches`` mix. Its limits are ``mystery_path_grid.train``'s, a
+    stand-in: the cell's own come with its configuration."""
+    from etmppo_tpu_torch.config import MORTAR_MAYHEM_GRID
+    stand_in = harness.load_cell("mystery_path_grid.train")
+    traffic = json.loads(
+        (harness.HERE / "traffic" / "train_launches.json").read_text())
+    return harness.Cell(
+        "mortar_mayhem_grid.train", 1,
+        dict(name="mortar_mayhem_grid",
+             config=copy.deepcopy(MORTAR_MAYHEM_GRID)),
+        traffic, stand_in.limits, stand_in.end_to_end, stand_in.per_layer)
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_a_composed_mortar_mayhem_cell_reads_correct(trace, tiny_cell):
+    cell = tiny_cell(mortar_mayhem_cell())
+    result = rehearse(cell, trace)
+    assert result["correct"] is True, result["checks"]
+    assert result["attempted"] > 0 and result["failed"] == 0
+    if not trace:
+        assert set(result["metrics"]) == {m["name"] for m in
+                                          cell.end_to_end}
+
+
+@pytest.mark.parametrize("fault", [unchanged_state, half_batch,
+                                   altered_action])
+def test_planted_faults_fail_a_composed_mortar_mayhem_cell(fault,
+                                                           tiny_cell):
+    result = rehearse(tiny_cell(mortar_mayhem_cell()), faults=[fault])
     assert result["correct"] is False
 
 

@@ -42,7 +42,13 @@ def test_a_rehearsal_loads_no_jax_and_no_jax_package():
 
 
 def test_the_reference_loads_nothing_of_the_port():
+    """The reference's modules, every env file among them, found by glob."""
+    envs = sorted(p.stem for p in
+                  (harness.HERE / "reference").glob("env_*.py"))
+    assert {"env_minigrid", "env_mysterypath_grid",
+            "env_mortarmayhem_grid"} <= set(envs)
     names = top_level_names(
         "import portbench.reference.model, portbench.reference.envs, "
-        "portbench.reference.ppo, portbench.compare, portbench.yardstick")
+        "portbench.reference.ppo, portbench.compare, portbench.yardstick\n"
+        + "".join(f"import portbench.reference.{e}\n" for e in envs))
     assert not names & {"etmppo_tpu_torch", *harness.FORBIDDEN}
