@@ -20,7 +20,8 @@ update's phase seconds on the device (the rollout's policy, env step,
 reset paths and GAE, the PPO update's preparation, losses and steps, the
 outputs), each launch's host spans, the trainer's set-up spans and
 ``capture``, the fused loop's capture record (its seconds, graph nodes,
-pool bytes and env reset-kernel launches; empty on the eager route).
+pool bytes, env reset-kernel launches and window-attention launches by
+kernel; empty on the eager route).
 ``--seeds N``
 trains seeds ``seed .. seed + N - 1`` one after another as
 ``<run-id>_s<seed>`` and prints the mean and std of their final

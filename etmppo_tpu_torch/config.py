@@ -12,6 +12,11 @@ unchanged:
 
 ``use_pallas_attention`` keeps its name for compatibility with those files; in
 this package it selects the CUDA window-attention kernel for the PPO loss.
+``grouped_attention`` is the port's own key, which the JAX package's files
+do not have: true takes the grouped pair of those kernels (the minibatch
+sorted by worker on the card) in place of the per-sample pair, for the same
+mathematics. ``config_to_dict`` leaves it out while it is false, so the
+dict of a config without it is the JAX package's.
 PyYAML is imported only by ``load_config``: nothing else reads a YAML file.
 """
 from __future__ import annotations
@@ -376,6 +381,9 @@ class TrainConfig:
     # The CUDA backward kernel for the window attention (else the plain
     # PyTorch VJP runs on the card).
     pallas_backward: bool = False
+    # The grouped window-attention kernels (sorted by worker) in place of
+    # the per-sample ones; the port's own key (training/ppo.PPOUpdate).
+    grouped_attention: bool = False
     # Save a full training-state checkpoint every this many updates (0: never).
     checkpoint_interval: int = 0
     checkpoint_dir: str = "./models"
@@ -442,7 +450,8 @@ def config_from_dict(raw: Dict[str, Any]) -> TrainConfig:
     for name in ("compute_dtype", "checkpoint_dir", "summary_dir"):
         if name in raw:
             kwargs[name] = str(raw[name])
-    for name in ("use_pallas_attention", "pallas_backward", "obs_uint8"):
+    for name in ("use_pallas_attention", "pallas_backward", "obs_uint8",
+                 "grouped_attention"):
         if name in raw:
             kwargs[name] = bool(raw[name])
     for name in ("learning_rate_schedule", "beta_schedule", "clip_range_schedule"):
@@ -460,5 +469,9 @@ def load_config(path: str) -> TrainConfig:
 
 
 def config_to_dict(config: TrainConfig) -> Dict[str, Any]:
-    """The config as a nested dict of plain values."""
-    return dataclasses.asdict(config)
+    """The config as a nested dict of plain values, without
+    ``grouped_attention`` while it is false."""
+    raw = dataclasses.asdict(config)
+    if not config.grouped_attention:
+        del raw["grouped_attention"]
+    return raw

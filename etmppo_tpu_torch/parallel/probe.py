@@ -155,7 +155,8 @@ def _sample_actions(fn, replay: Optional[Replay], sampled: list,
 
 
 def train(mesh: Optional[DataMesh], config: TrainConfig, run_id: str = "probe",
-          updates: int = 1, grouped: bool = False, resume: bool = False,
+          updates: int = 1, grouped: Optional[bool] = None,
+          resume: bool = False,
           replay: Optional[Replay] = None,
           state_dict: Optional[Dict[str, torch.Tensor]] = None,
           batch_fields: Sequence[str] = (), keep_params: bool = True,
@@ -426,9 +427,10 @@ def differences(a, b, where: str = "") -> List[str]:
 class CountingKernel:
     """A window-attention kernel whose plain version (what CPU tensors
     take) counts its calls in ``launches``, as the card's wrappers count
-    their launches."""
+    their launches, under the kernel's ``symbol``."""
 
     def __init__(self, kernel):
+        self.symbol = kernel.symbol
         self.launches = 0
         self._plain = kernel.plain
 
@@ -559,7 +561,7 @@ def _perturb_after(trainer, mesh: DataMesh, rank: int, after: int) -> None:
 
 
 def fused_against_eager(mesh: DataMesh, config: TrainConfig, chunk: int,
-                        chunks: int = 1, grouped: bool = False,
+                        chunks: int = 1, grouped: Optional[bool] = None,
                         device="cpu", deterministic: bool = False,
                         stand_in: bool = False, resume: bool = False,
                         perturb: Optional[tuple] = None,

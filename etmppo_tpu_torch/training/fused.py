@@ -56,7 +56,9 @@ The window-attention wrappers and an env's kernels (Mystery Path Grid's
 reset) count their launches in Python, which a replay does not run. The loop
 takes each kernel's launches during a capture, takes them back afterwards (a
 capture runs nothing), and adds them at every replay, so the counts stay the
-number of kernels that ran. The
+number of kernels that ran; ``capture`` keeps the env's reset kernel's
+(``reset_launches``) and each window-attention kernel's by its symbol
+(``attention_launches``) in a captured update. The
 collectives run between the replays, so the mesh's traffic counts are true.
 """
 from __future__ import annotations
@@ -68,11 +70,21 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.window_attention import (window_attention_bwd,
+                                    window_attention_bwd_grouped,
+                                    window_attention_fwd,
+                                    window_attention_fwd_grouped)
 from ..parallel.mesh import DataMesh, check_replicated, replica_digest
 from ..utils.profiling import PhaseClock
 from ..utils.runtime import debug_nans_enabled, nan_errors
 from .ppo import PPOUpdate, Segments
 from .rollout import RolloutBatch, RolloutFn, RolloutState
+
+# The window-attention kernels' symbols, which ``capture["attention_launches"]``
+# counts: the per-sample pair and the grouped pair.
+ATTENTION_SYMBOLS = tuple(k.symbol for k in (
+    window_attention_fwd, window_attention_bwd, window_attention_fwd_grouped,
+    window_attention_bwd_grouped))
 
 
 class ChunkOutputs(NamedTuple):
@@ -232,8 +244,9 @@ class FusedTrainLoop(Segments):
     them, and the loop is the ``Segments`` runner of ``mesh_update``. After
     a capture, ``capture`` holds its seconds and the instantiation's (the
     clock's spans ``launch.capture`` and ``launch.instantiate``), the
-    graph's nodes, the bytes its memory pool reserved and the env's reset
-    kernel launches it holds (``reset_launches``); under a mesh
+    graph's nodes, the bytes its memory pool reserved, the env's reset
+    kernel launches it holds (``reset_launches``) and each window-attention
+    kernel's launches by symbol (``attention_launches``); under a mesh
     their sums over the segments, and each segment's in ``segments``. The
     loop runs the clock's spans ``launch.warm_up`` and ``launch.replays``
     and, after each update, ``clock.store``; ``clock`` is the update's
@@ -377,6 +390,16 @@ class FusedTrainLoop(Segments):
         """Of a capture's kernel ``launches``, the env's reset kernel's."""
         return launches.get(self.rollout_fn.env.reset_kernel, 0)
 
+    def _attention_launches(self, launches: Dict) -> Dict[str, int]:
+        """Of a capture's kernel ``launches``, each window-attention
+        kernel's by symbol (0 for a kernel the update does not take)."""
+        counts = dict.fromkeys(ATTENTION_SYMBOLS, 0)
+        upd = self.update_fn
+        for kernel in (upd.kernel, upd.backward_kernel):
+            if kernel is not None:
+                counts[kernel.symbol] = launches.get(kernel, 0)
+        return counts
+
     def _capture(self) -> None:
         if self.mesh is not None:
             self._capture_segments()
@@ -405,7 +428,9 @@ class FusedTrainLoop(Segments):
             capture_s=captured.seconds, instantiate_s=built.seconds,
             nodes=graph_nodes(graph),
             pool_bytes=torch.cuda.memory_reserved(device) - reserved,
-            reset_launches=self._reset_launches(self._replay_launches))
+            reset_launches=self._reset_launches(self._replay_launches),
+            attention_launches=self._attention_launches(
+                self._replay_launches))
         for kernel, n in before.items():
             kernel.launches = n
         self._graph = graph
@@ -424,6 +449,9 @@ class FusedTrainLoop(Segments):
         for key in ("capture_s", "instantiate_s", "nodes", "pool_bytes",
                     "reset_launches"):
             self.capture[key] = sum(c[key] for c in segments)
+        self.capture["attention_launches"] = {
+            symbol: sum(c["attention_launches"][symbol] for c in segments)
+            for symbol in ATTENTION_SYMBOLS}
 
     def segment(self, name: str, fn, generators=()) -> None:
         """Runs segment ``name`` of ``mesh_update``: at once (eager, the
@@ -470,6 +498,8 @@ class FusedTrainLoop(Segments):
             nodes=graph_nodes(graph),
             pool_bytes=torch.cuda.memory_reserved(device) - reserved,
             reset_launches=self._reset_launches(
+                self._segment_launches[name]),
+            attention_launches=self._attention_launches(
                 self._segment_launches[name]))
         for kernel, n in before.items():
             kernel.launches = n

@@ -21,8 +21,9 @@ replayed; the same chunks run eagerly on the CPU or under
 ``--debug-nans``) is printed at the first chunk.
 
 The loss and kernel choice is this trainer's (``config.use_pallas_attention``,
-``config.pallas_backward``, and the keyword ``grouped`` for the grouped
-pair), not a module global: ``pallas_backward`` without
+``config.pallas_backward``, and ``config.grouped_attention`` for the grouped
+pair, which the keyword ``grouped`` overrides where given), not a module
+global: ``pallas_backward`` without
 ``use_pallas_attention`` warns and takes the gathered-window loss, as in the
 JAX package. Each eager update's rollout and PPO update are the spans
 ``rollout`` and ``ppo_update`` of a profiler trace (``utils/profiling.py``);
@@ -107,9 +108,11 @@ def _check_mesh(config: TrainConfig, mesh: Optional[DataMesh]
 class PPOTrainer:
     def __init__(self, config: TrainConfig, run_id: str = "run",
                  device="cuda", enable_metrics: bool = True,
-                 grouped: bool = False, mesh: Optional[DataMesh] = None,
-                 env: Any = None, phase_clock: bool = False):
-        """With ``config.num_devices > 1``, ``mesh`` is this rank's
+                 grouped: Optional[bool] = None,
+                 mesh: Optional[DataMesh] = None, env: Any = None,
+                 phase_clock: bool = False):
+        """``grouped``, where given, overrides ``config.grouped_attention``
+        (the grouped window-attention pair). With ``config.num_devices > 1``, ``mesh`` is this rank's
         (``parallel/mesh.py``) and the trainer runs on ``mesh.device``.
         ``env`` replaces the config's env (``envs.factory.create_env``): a
         host env of the caller's (a process pool of its own envs), which
@@ -127,6 +130,8 @@ class PPOTrainer:
         self.is_primary = mesh is None or mesh.is_primary
         self.device = resolve_device(device if mesh is None else mesh.device)
         self.clock = PhaseClock(phase_clock, self.device)
+        if grouped is None:
+            grouped = config.grouped_attention
         with self.clock.setup_span("setup.trainer"):
             self._build(config, grouped, mesh, env)
             self.update = 0

@@ -34,7 +34,7 @@ from etmppo_tpu.envs.factory import create_env as jax_create_env
 from etmppo_tpu.models.actor_critic import ActorCriticModel as JModel
 from etmppo_tpu.training import checkpoint as jax_checkpoint
 from etmppo_tpu_torch import cli
-from etmppo_tpu_torch.config import config_from_dict
+from etmppo_tpu_torch.config import config_from_dict, config_to_dict
 from etmppo_tpu_torch.interop import flax_to_state_dict, state_dict_to_flax
 from etmppo_tpu_torch.training.checkpoint import (Checkpointer, load_model,
                                                   read_model_config,
@@ -122,7 +122,7 @@ def test_codec_refuses_chunked_arrays_and_other_ext_types():
 
 @pytest.mark.parametrize("path", ARTIFACTS)
 def test_every_artifact_config_reads_like_the_jax_package(path):
-    assert dataclasses.asdict(read_model_config(path)) == dataclasses.asdict(
+    assert config_to_dict(read_model_config(path)) == dataclasses.asdict(
         jax_checkpoint.read_model_config(path))
 
 
@@ -255,7 +255,7 @@ def test_the_jax_package_loads_what_the_port_saves(tmp_path, env):
     params, jconfig = jax_checkpoint.load_model(path)
     _assert_trees_equal(jax.tree.map(np.asarray, params),
                         state_dict_to_flax(trainer.model.state_dict()))
-    assert dataclasses.asdict(jconfig) == dataclasses.asdict(config)
+    assert dataclasses.asdict(jconfig) == config_to_dict(config)
     model, _ = load_model(path, device="cpu")
     for k, v in trainer.model.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k

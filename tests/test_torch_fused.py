@@ -33,6 +33,7 @@ from etmppo_tpu_torch.config import config_from_dict
 from etmppo_tpu_torch.envs.poc_memory import PocMemoryResetDraws
 from etmppo_tpu_torch.interop import load_flax_params
 from etmppo_tpu_torch.ops import distributions
+from etmppo_tpu_torch.parallel.probe import CountingKernel
 from etmppo_tpu_torch.training import fused as fused_lib
 from etmppo_tpu_torch.training import trainer as trainer_lib
 from etmppo_tpu_torch.training.ppo import STAT_NAMES
@@ -381,18 +382,6 @@ def test_debug_nans_after_the_graph_route_raises(tmp_path, monkeypatch):
 # --- the graph route's bookkeeping, on a stand-in graph ---------------------
 
 
-class _CountingKernel:
-    """A kernel whose plain version (what CPU tensors take) counts."""
-
-    def __init__(self, kernel):
-        self.launches = 0
-        self._plain = kernel.plain
-
-    def plain(self, *args, **kwargs):
-        self.launches += 1
-        return self._plain(*args, **kwargs)
-
-
 class _StandInGraph:
     """``torch.cuda.CUDAGraph`` on the CPU: the capture runs the body and
     then puts back every value it changed (a capture computes nothing); a
@@ -489,8 +478,8 @@ def test_graph_route_bookkeeping_on_a_stand_in(tmp_path, monkeypatch):
     assert graph.fused_route == "graph"
     for t in (eager, graph):
         upd = t.update_fn
-        upd.kernel = _CountingKernel(upd.kernel)
-        upd.backward_kernel = _CountingKernel(upd.backward_kernel)
+        upd.kernel = CountingKernel(upd.kernel)
+        upd.backward_kernel = CountingKernel(upd.backward_kernel)
     _stand_in_graphs(monkeypatch, graph)
     loop = graph.fused_loop
 

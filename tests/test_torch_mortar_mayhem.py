@@ -32,7 +32,7 @@ from etmppo_tpu.ops import memory_index as jmi
 from etmppo_tpu.training import ppo as jppo
 from etmppo_tpu.training.rollout import RolloutFn as JRolloutFn
 from etmppo_tpu_torch.config import (MORTAR_MAYHEM_GRID, config_from_dict,
-                                     load_config)
+                                     config_to_dict, load_config)
 from etmppo_tpu_torch.envs.factory import create_env
 from etmppo_tpu_torch.envs.mortar_mayhem import (MortarMayhemGridEnv,
                                                  MortarMayhemResetDraws,
@@ -187,7 +187,7 @@ def test_config_dict_is_exactly_the_yaml():
         assert MORTAR_MAYHEM_GRID == yaml.safe_load(f)
     cfg = config_from_dict(MORTAR_MAYHEM_GRID)
     assert cfg == load_config(YAML)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_load_config(YAML))
+    assert config_to_dict(cfg) == dataclasses.asdict(jax_load_config(YAML))
     assert cfg.use_pallas_attention and cfg.pallas_backward
 
 

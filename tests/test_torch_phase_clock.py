@@ -43,7 +43,7 @@ CAPTURE_SPANS = {"launch.warm_up", "launch.capture", "launch.instantiate"}
 SETUP_SPANS = {"setup.trainer", "setup.env", "setup.model",
                "setup.optimizer", "setup.kernels"}
 CAPTURE_KEYS = {"capture_s", "instantiate_s", "nodes", "pool_bytes",
-                "reset_launches"}
+                "reset_launches", "attention_launches"}
 
 
 def _raw(name, tmp_path, **overrides):
