@@ -13,8 +13,9 @@ Phases, each printing one line with its seconds:
                 its result line.
 2. build:       compiles the four window-attention kernels from
                 etmppo_tpu_torch/csrc/ (the per-sample forward and backward,
-                the grouped forward and backward) and Mystery Path Grid's
-                reset kernel (mystery_path_reset.cu), one nvcc process each,
+                the grouped forward and backward) and the two reset kernels,
+                Mystery Path Grid's (mystery_path_reset.cu) and Mortar
+                Mayhem Grid's (mortar_mayhem_reset.cu), one nvcc process each,
                 started together (a library built from the same source is
                 reused).
 3. kernel:      prints each kernel's registers, spills and static shared
@@ -54,6 +55,13 @@ Phases, each printing one line with its seconds:
                 the kernel, the default path, a library copy of the same
                 state and frame (clone) and the bound by bytes, each timed
                 inside a CUDA graph, as the rollout runs them.
+                mortar-reset-kernel: the same for Mortar Mayhem Grid's
+                auto-reset kernel (envs/mortar_mayhem.py's
+                MortarMayhemReset), fed the uniforms of the reset draws, on
+                the flagship's reset params (arena 5, 5 allowed commands,
+                10 a reset) and with diagonals (arena 7, 9 allowed, 6 a
+                reset): 200 steps x 3 masks each, then the four timings
+                with 0, 1, 8 and 32 of the 32 workers done.
 4. trainer:     two PPO updates of the MiniGrid-Memory flagship exactly as its
                 YAML says (pallas_backward: true) at full width (16 workers x
                 512 steps, TrXL 3 x 384, 5 epochs x 8 minibatches); each kernel
@@ -89,8 +97,10 @@ Phases, each printing one line with its seconds:
                 memory 118, 3 epochs x 8 minibatches) with the grouped
                 kernels (PPOTrainer(..., grouped=True)); each grouped kernel
                 must launch exactly 72 times per update (3 blocks x 24
-                minibatches), the per-sample ones never, every stat must be
-                finite, and the saved .nn must load back to the same weights.
+                minibatches), the per-sample ones never, the env's reset
+                kernel 512 times per update (one launch a rollout step),
+                every stat must be finite, and the saved .nn must load back
+                to the same weights.
                 Prints the kernel shape the trainer gives. Then one more
                 rollout, and the PPO update on its batch in turns with the
                 plain backward, the per-sample pair and the grouped pair
@@ -292,23 +302,27 @@ Phases, each printing one line with its seconds:
                 also runs the graph route at N = 1, 2 and 4 (two launches
                 of 2; the steady env-steps/s of launch 2).
 22. phase-clock: the trainer's phase clock (utils/profiling.PhaseClock,
-                csrc/phase_stamp.cu) at the two benchmark flagships,
-                MiniGrid-Memory and Mystery Path Grid, as their YAMLs say
-                (launches of 4): a trainer with the clock off and one with
-                it on, whose graph must hold the off graph's nodes plus one
-                per stamp; their steady launches by the host clock, 3 each
-                in turns; then a launch whose replays CUDA events time: each
-                update span must agree with its replay's events within 1%,
-                and the capture record must count 512 reset-kernel launches
-                an update at Mystery Path Grid and none at the flagship.
+                csrc/phase_stamp.cu) at the three benchmark flagships,
+                MiniGrid-Memory, Mystery Path Grid and Mortar Mayhem Grid
+                (the last on the grouped pair, as its cell runs it), as
+                their YAMLs say (launches of 4): a trainer with the clock
+                off and one with it on, whose graph must hold the off
+                graph's nodes plus one per stamp; their steady launches by
+                the host clock, 3 each in turns; then a launch whose replays
+                CUDA events time: each update span must agree with its
+                replay's events within 1%, and the capture record must count
+                512 reset-kernel launches an update at Mystery Path Grid and
+                Mortar Mayhem Grid and none at the MiniGrid flagship.
                 Prints each phase's median over the launch's updates, the
                 launch's host spans, its idle time (the launch's host
                 seconds less its updates' spans) and 4 x (rollout +
                 ppo_update + outputs) + idle against the clock-off launch.
-                ``python3 chip_smoke.py phase-clock`` runs the device line,
-                this phase and, per flagship, 3 processes with the clock
-                off and 3 with it on, in turns, each timing its steady
-                launches (the clock's cost in env-steps/s, with the spread).
+                ``python3 chip_smoke.py phase-clock [NAME ...]`` runs the
+                device line, this phase and, per flagship, 3 processes with
+                the clock off and 3 with it on, in turns, each timing its
+                steady launches (the clock's cost in env-steps/s, with the
+                spread), at the flagships named (of CLOCK_FLAGSHIPS) or at
+                all three.
 No window-attention kernel may launch in phases 10-14. The flagship phase
 (4) also prints flagship-mfu: the FLOPs of a PPO update (counted_flops of
 one minibatch's forward and backward, plus window_attention_flops for the
@@ -428,6 +442,16 @@ RESET_WORKERS = 32
 RESET_STEPS = 200
 RESET_TIMED_SHARE = 0.25       # of the workers done at a timed call
 MYSTERY_RESETS = 512           # per update: one launch a rollout step
+# Mortar Mayhem Grid's auto-reset kernel, held the same way on the reset
+# params of MORTAR_RESET_CASES, and timed with each number of workers done.
+MORTAR_RESET_NAME = "mortar_mayhem_reset"
+MORTAR_RESET_CASES = {"flagship A5": None,   # MORTAR_MAYHEM_GRID's params
+                      "diagonal A7": {"arena_size": 7, "allowed_commands": 9,
+                                      "command_count": [4, 6],
+                                      "explosion_duration": [3],
+                                      "explosion_delay": [4]}}
+MORTAR_RESET_DONE = (0, 1, 8, 32)
+MORTAR_RESETS = 512            # per update: one launch a rollout step
 
 
 def phase(name: str, start: float, detail: str = "") -> None:
@@ -501,58 +525,105 @@ def reset_bound_ms(mask, draws, state, obs) -> float:
     return n_bytes / H100_BYTES_PER_S * 1e3
 
 
+def hold_reset(env, g: torch.Generator, label: str) -> tuple:
+    """RESET_STEPS steps of random actions from a reset, each followed by
+    the env's reset with an all-false, an all-true and a random mask (the
+    dones and a random quarter): the kernel's state and frame must equal
+    ``TorchEnv.reset_done``'s default path, bit for bit, with one launch a
+    call. Returns the last state and frame, the calls checked and the
+    random-mask resets."""
+    W = env.n_workers
+    kernel = env.reset_kernel
+    kernel.launches = 0
+    state, obs = env.reset(env.sample_reset_draws(g))
+    zeros = torch.zeros(W, dtype=torch.bool, device=env.device)
+    bad, ended = [], 0
+    for _ in range(RESET_STEPS):
+        actions = torch.randint(0, env.action_branches[0], (W, 1),
+                                generator=g, device=env.device)
+        state, obs, _, done, _ = env.step(state, actions)
+        rand = done | (torch.rand(W, generator=g, device=env.device) < 0.25)
+        for mask in (zeros, ~zeros, rand):
+            draws = env.sample_reset_draws(g)
+            want = TorchEnv.reset_done(env, mask, draws, state, obs)
+            got = env.reset_done(mask, draws, state, obs)
+            bad.append(_bit_mismatches(got, want))
+        ended += rand.sum()
+        state, obs = got
+    bad = torch.stack(bad).cpu()
+    checked = kernel.launches
+    if bad.any() or checked != 3 * RESET_STEPS:
+        first = int(bad.nonzero()[0, 0]) if bad.any() else -1
+        raise RuntimeError(
+            f"{label}: {int(bad.sum())} elements differ from the default "
+            f"path (first at call {first}), {checked} launches for "
+            f"{3 * RESET_STEPS} calls")
+    return state, obs, checked, int(ended)
+
+
+def time_reset(env, mask, draws, state, obs) -> dict:
+    """The kernel, the default path, a library copy of the state and frame
+    (clone) and the bound by bytes, each timed inside a CUDA graph."""
+    m = dict(timed_done=int(mask.sum()))
+    m["ms"] = graph_ms(lambda: env.reset_done(mask, draws, state, obs))
+    m["plain_ms"] = graph_ms(
+        lambda: TorchEnv.reset_done(env, mask, draws, state, obs))
+    m["library_ms"] = graph_ms(lambda: [x.clone() for x in (*state, obs)])
+    m["bound_ms"], m["bound_by"] = (
+        reset_bound_ms(mask, draws, state, obs), "bytes")
+    return m
+
+
 def measure_reset(device, gen: torch.Generator) -> dict:
-    """The reset kernel against the default path, bit for bit, then timed
-    (kernel, default path, library copy, bound), for each of RESET_CASES."""
+    """Mystery Path Grid's reset kernel against the default path, bit for
+    bit, then timed (kernel, default path, library copy, bound), for each
+    of RESET_CASES."""
     from etmppo_tpu_torch.config import MYSTERY_PATH_GRID
     from etmppo_tpu_torch.envs.mystery_path import MysteryPathGridEnv
     out = {}
     for case, params in RESET_CASES.items():
         params = params or MYSTERY_PATH_GRID["environment"]["reset_params"]
         env = MysteryPathGridEnv(params, RESET_WORKERS, device)
-        kernel = env.reset_kernel
-        kernel.launches = 0
         g = torch.Generator(device).manual_seed(
             int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
-        state, obs = env.reset(env.sample_reset_draws(g))
-        zeros = torch.zeros(RESET_WORKERS, dtype=torch.bool, device=device)
-        bad, ended = [], 0
-        for _ in range(RESET_STEPS):
-            actions = torch.randint(0, 4, (RESET_WORKERS, 1), generator=g,
-                                    device=device)
-            state, obs, _, done, _ = env.step(state, actions)
-            rand = done | (torch.rand(RESET_WORKERS, generator=g,
-                                      device=device) < 0.25)
-            for mask in (zeros, ~zeros, rand):
-                draws = env.sample_reset_draws(g)
-                want = TorchEnv.reset_done(env, mask, draws, state, obs)
-                got = env.reset_done(mask, draws, state, obs)
-                bad.append(_bit_mismatches(got, want))
-            ended += rand.sum()
-            state, obs = got
-        bad = torch.stack(bad).cpu()
-        checked = kernel.launches
-        if bad.any() or checked != 3 * RESET_STEPS:
-            first = int(bad.nonzero()[0, 0]) if bad.any() else -1
-            raise RuntimeError(
-                f"reset-kernel, {case}: {int(bad.sum())} elements differ from "
-                f"the default path (first at call {first}), "
-                f"{checked} launches for {3 * RESET_STEPS} calls")
+        state, obs, checked, ended = hold_reset(env, g,
+                                                f"reset-kernel, {case}")
         mask = torch.rand(RESET_WORKERS, generator=g,
                           device=device) < RESET_TIMED_SHARE
         draws = env.sample_reset_draws(g)
         m = dict(max_abs_err=0.0, mismatched_elements=0, checked=checked,
-                 ended=int(ended), timed_done=int(mask.sum()))
-        m["ms"] = graph_ms(lambda: env.reset_done(mask, draws, state, obs))
-        m["plain_ms"] = graph_ms(
-            lambda: TorchEnv.reset_done(env, mask, draws, state, obs))
-        m["library_ms"] = graph_ms(
-            lambda: [x.clone() for x in (*state, obs)])
-        m["bound_ms"], m["bound_by"] = (
-            reset_bound_ms(mask, draws, state, obs), "bytes")
-        m["launches"] = checked
+                 ended=ended, launches=checked)
+        m.update(time_reset(env, mask, draws, state, obs))
         out[case] = m
-        del env, state, obs, got, want
+        del env, state, obs
+    return out
+
+
+def measure_mortar_reset(device, gen: torch.Generator) -> dict:
+    """Mortar Mayhem Grid's reset kernel against the default path, bit for
+    bit, for each of MORTAR_RESET_CASES; then, at each of MORTAR_RESET_DONE
+    workers done, timed as ``measure_reset`` times its kernel."""
+    from etmppo_tpu_torch.config import MORTAR_MAYHEM_GRID
+    from etmppo_tpu_torch.envs.mortar_mayhem import MortarMayhemGridEnv
+    out = {}
+    for case, params in MORTAR_RESET_CASES.items():
+        params = params or MORTAR_MAYHEM_GRID["environment"]["reset_params"]
+        env = MortarMayhemGridEnv(params, RESET_WORKERS, device)
+        g = torch.Generator(device).manual_seed(
+            int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
+        state, obs, checked, ended = hold_reset(
+            env, g, f"mortar-reset-kernel, {case}")
+        m = dict(max_abs_err=0.0, mismatched_elements=0, checked=checked,
+                 ended=ended, launches=checked, by_done={})
+        draws = env.sample_reset_draws(g)
+        order = torch.randperm(RESET_WORKERS, generator=g, device=device)
+        for n_done in MORTAR_RESET_DONE:
+            mask = torch.zeros(RESET_WORKERS, dtype=torch.bool, device=device)
+            mask[order[:n_done]] = True
+            m["by_done"][n_done] = time_reset(env, mask, draws, state, obs)
+        m.update(m["by_done"][MORTAR_RESET_DONE[-2]])
+        out[case] = m
+        del env, state, obs
     return out
 
 
@@ -1193,9 +1264,10 @@ def update_drift(trainer, batch, pair, deterministic: bool = False) -> tuple:
     return drift, sum(seconds) / len(seconds)
 
 
-def run_mortarmayhem(device, k) -> list:
+def run_mortarmayhem(device, k) -> tuple:
     """Phase 6: Mortar Mayhem Grid with the grouped kernels; returns the
-    launches of the counted run, in the order of NAMES."""
+    launches of the counted run, in the order of NAMES, and the env's reset
+    kernel's launches there."""
     from etmppo_tpu_torch.config import MORTAR_MAYHEM_GRID, config_from_dict
     from etmppo_tpu_torch.training.checkpoint import load_model
     from etmppo_tpu_torch.training.trainer import PPOTrainer
@@ -1217,10 +1289,14 @@ def run_mortarmayhem(device, k) -> list:
             phase("mortarmayhem-setup", t, kernel_shape(trainer,
                                                          "mortarmayhem"))
             t = time.perf_counter()
+            reset = trainer.env.reset_kernel
+            reset.launches = 0
             per_update, _, _ = train_counted(
                 trainer, k, "mortarmayhem",
                 {n: MORTAR_LAUNCHES for n in NAMES[2:]})
             launches = [k[n].launches for n in NAMES]
+            check_launches((reset,), MORTAR_RESETS * UPDATES, "mortarmayhem")
+            resets = reset.launches
             trainer._save_model()
             model, _ = load_model(os.path.join(tmp, "mmg.nn"), device)
             _assert_same(model.state_dict(), trainer.model.state_dict(),
@@ -1228,7 +1304,7 @@ def run_mortarmayhem(device, k) -> list:
             steps = config.n_workers * config.worker_steps
             phase("mortarmayhem", t,
                   f"{UPDATES} updates, launches fwd_grouped {launches[2]} "
-                  f"bwd_grouped {launches[3]}; s/update "
+                  f"bwd_grouped {launches[3]} reset {resets}; s/update "
                   + " ".join(f"{s:.2f}" for s in per_update)
                   + f"; env-steps/s {steps / per_update[-1]:.0f} (update 2);"
                   " mmg.nn loads to the same weights")
@@ -1263,7 +1339,7 @@ def run_mortarmayhem(device, k) -> list:
                                    "with deterministic algorithms differ")
         finally:
             trainer.close()
-    return launches
+    return launches, resets
 
 
 def run_searingspotlights(device, k) -> list:
@@ -3431,7 +3507,13 @@ def update_mfu(trainer, batch, update_s: float) -> str:
 
 # --- phase 22: the phase clock ------------------------------------------
 
-CLOCK_FLAGSHIPS = ("MINIGRID_FLAGSHIP", "MYSTERY_PATH_GRID")
+CLOCK_FLAGSHIPS = ("MINIGRID_FLAGSHIP", "MYSTERY_PATH_GRID",
+                   "MORTAR_MAYHEM_GRID")
+# The flagships trained on the grouped pair, as their benchmark cells are.
+CLOCK_GROUPED = ("MORTAR_MAYHEM_GRID",)
+# The flagships whose env resets in a kernel of its own: one launch a
+# rollout step.
+CLOCK_RESET_KERNEL = ("MYSTERY_PATH_GRID", "MORTAR_MAYHEM_GRID")
 # Steady launches of the clock-off and clock-on trainers, in turns.
 CLOCK_TURNS = (False, True, True, False, False, True)
 CLOCK_RATE_SECONDS = 15.0
@@ -3453,12 +3535,14 @@ class EventTimedGraph:
 
 def clock_trainer(name: str, tmp: str, device, on: bool, seed: int = 0):
     """The flagship ``name`` of ``etmppo_tpu_torch.config`` as its YAML
-    says, with the clock on or off; it must take the graph route."""
+    says (on the grouped pair where CLOCK_GROUPED names it), with the clock
+    on or off; it must take the graph route."""
     from etmppo_tpu_torch import config as config_lib
     from etmppo_tpu_torch.training.trainer import PPOTrainer
     config = dataclasses.replace(
         config_lib.config_from_dict(getattr(config_lib, name)),
-        summary_dir=tmp, checkpoint_dir=tmp, seed=seed)
+        summary_dir=tmp, checkpoint_dir=tmp, seed=seed,
+        grouped_attention=name in CLOCK_GROUPED)
     trainer = PPOTrainer(config, run_id=name, device=device,
                          enable_metrics=False, phase_clock=on)
     check_graph_route(trainer, name)
@@ -3500,12 +3584,13 @@ def fmt(values) -> str:
     return "/".join(f"{v:.4f}" for v in values)
 
 
-def run_phase_clock(device, rates: int = 0) -> dict:
-    """Phase 22 (the module's docstring); with ``rates`` > 0 also that many
-    processes each with the clock off and on, per flagship. Returns the
-    numbers by flagship."""
+def run_phase_clock(device, rates: int = 0,
+                    names: tuple = CLOCK_FLAGSHIPS) -> dict:
+    """Phase 22 (the module's docstring) at the flagships ``names``; with
+    ``rates`` > 0 also that many processes each with the clock off and on,
+    per flagship. Returns the numbers by flagship."""
     out = {}
-    for name in CLOCK_FLAGSHIPS:
+    for name in names:
         t = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             off = clock_trainer(name, tmp, device, False)
@@ -3515,7 +3600,7 @@ def run_phase_clock(device, rates: int = 0) -> dict:
             nodes_off = off.fused_loop.capture["nodes"]
             stamps = clock_stamps(off.config)
             want_resets = (off.config.worker_steps
-                           if name == "MYSTERY_PATH_GRID" else 0)
+                           if name in CLOCK_RESET_KERNEL else 0)
             on = clock_trainer(name, tmp, device, True)
             first_on = launch_seconds(on, 1)[0]
             capture = dict(on.fused_loop.capture)
@@ -3649,9 +3734,15 @@ def clock_rates(name: str, n: int) -> dict:
     return out
 
 
-def phase_clock_main() -> int:
-    """``python3 chip_smoke.py phase-clock``: the device line and phase 22
-    with the clock's cost in processes."""
+def phase_clock_main(names: list) -> int:
+    """``python3 chip_smoke.py phase-clock [NAME ...]``: the device line and
+    phase 22 with the clock's cost in processes, at the flagships named or
+    at every one."""
+    unknown = set(names) - set(CLOCK_FLAGSHIPS)
+    if unknown:
+        print(f"chip_smoke: no flagship {sorted(unknown)} in "
+              f"{CLOCK_FLAGSHIPS}", file=sys.stderr)
+        return 2
     start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3664,7 +3755,7 @@ def phase_clock_main() -> int:
     device = torch.device("cuda", 0)
     phase("device", start, f"{torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
-    run_phase_clock(device, rates=3)
+    run_phase_clock(device, rates=3, names=tuple(names) or CLOCK_FLAGSHIPS)
     phase("total", start)
     print(smi)
     return 0
@@ -3685,10 +3776,12 @@ def main() -> int:
     phase("device", start, f"{kind}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
+    from etmppo_tpu_torch.envs.mortar_mayhem import MortarMayhemReset
     from etmppo_tpu_torch.envs.mystery_path import MysteryPathReset
     from etmppo_tpu_torch.ops import window_attention as wa
     k = {name: getattr(wa, name) for name in NAMES}
     reset_kernel = MysteryPathReset()
+    mortar_reset = MortarMayhemReset()
 
     t = time.perf_counter()
 
@@ -3698,8 +3791,9 @@ def main() -> int:
         path = kernel.build()
         return (f"{path.name} {time.perf_counter() - begin:.2f}s "
                 f"({'reused' if existed else 'nvcc'})")
-    with ThreadPoolExecutor(max_workers=len(k) + 1) as pool:
-        built = list(pool.map(timed_build, [*k.values(), reset_kernel]))
+    with ThreadPoolExecutor(max_workers=len(k) + 2) as pool:
+        built = list(pool.map(timed_build, [*k.values(), reset_kernel,
+                                            mortar_reset]))
     phase("build", t, "; ".join(built))
 
     t = time.perf_counter()
@@ -3718,10 +3812,12 @@ def main() -> int:
             line += f"; plans ({', '.join(fields)}) " + ", ".join(
                 f"{shape} {tuple(plan)}" for shape, plan in planned.items())
         print(line, flush=True)
-    print(f"{RESET_NAME}: " + "; ".join(
-        f"{r['function']} {r['registers']} registers, {r['spill_bytes']} "
-        f"bytes spilled, {r['static_smem']} bytes static smem"
-        for r in reset_kernel.resources()), flush=True)
+    for name, kernel in ((RESET_NAME, reset_kernel),
+                         (MORTAR_RESET_NAME, mortar_reset)):
+        print(f"{name}: " + "; ".join(
+            f"{r['function']} {r['registers']} registers, "
+            f"{r['spill_bytes']} bytes spilled, {r['static_smem']} bytes "
+            f"static smem" for r in kernel.resources()), flush=True)
     gen = torch.Generator().manual_seed(0)
     edge = {}
     for label in EDGE_CASES:
@@ -3747,6 +3843,17 @@ def main() -> int:
         f"library {m['library_ms']:.4f} bound {m['bound_ms']:.4f} "
         f"({m['bound_by']})" for case, m in reset.items()))
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    mortar = measure_mortar_reset(device, gen)
+    phase("mortar-reset-kernel", t, "; ".join(
+        f"{case}: {m['checked']} calls bit-identical to the default path "
+        f"({m['ended']} random-mask resets); " + ", ".join(
+            f"{n} of {RESET_WORKERS} done: ms {d['ms']:.4f} plain "
+            f"{d['plain_ms']:.4f} library {d['library_ms']:.4f} bound "
+            f"{d['bound_ms']:.4f} ({d['bound_by']})"
+            for n, d in m["by_done"].items())
+        for case, m in mortar.items()))
+    torch.cuda.empty_cache()
 
     launches = {"flagship": run_flagship(device, k)}
     torch.cuda.empty_cache()
@@ -3755,7 +3862,10 @@ def main() -> int:
     launches["mysterypath"], reset_launches["mysterypath"] = \
         run_mysterypath(device, k)
     torch.cuda.empty_cache()
-    launches["mortarmayhem"] = run_mortarmayhem(device, k)
+    mortar_launches = {"mortar-reset-kernel": sum(m["launches"]
+                                                  for m in mortar.values())}
+    launches["mortarmayhem"], mortar_launches["mortarmayhem"] = \
+        run_mortarmayhem(device, k)
     torch.cuda.empty_cache()
     launches["searingspotlights"] = run_searingspotlights(device, k)
     torch.cuda.empty_cache()
@@ -3792,6 +3902,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock = run_phase_clock(device)
     reset_launches["phase-clock"] = clock["MYSTERY_PATH_GRID"][
+        "reset_launches"]
+    mortar_launches["phase-clock"] = clock["MORTAR_MAYHEM_GRID"][
         "reset_launches"]
     check_float32("before the result line")
 
@@ -3834,6 +3946,24 @@ def main() -> int:
                              "library_ms", "max_abs_err", "timed_done")}
                      for case, m in reset.items()},
     })
+    main_case = next(iter(MORTAR_RESET_CASES))
+    entries.append({
+        "name": MORTAR_RESET_NAME, "route": "cuda",
+        "source": os.path.relpath(mortar_reset.source, os.getcwd()),
+        "replaces": RESET_REPLACES,
+        "launches": sum(mortar_launches.values()),
+        "launches_by_path": mortar_launches,
+        "max_abs_err": 0.0, "mismatched_elements": 0,
+        **{key: mortar[main_case][key] for key in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": "clone of the state and frame, the copy-through floor",
+        "timed_in": "a CUDA graph of 20 calls",
+        "main_shape": f"{main_case}, {MORTAR_RESET_DONE[-2]} done",
+        "by_shape": {f"{case}, {n} done": {
+            key: d[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "timed_done")}
+            for case, m in mortar.items() for n, d in m["by_done"].items()},
+    })
     print(json.dumps({"kernels": entries}))
     phase("total", start)
     print(smi)
@@ -3844,5 +3974,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(phase_clock_main() if sys.argv[1:] == ["phase-clock"]
+    sys.exit(phase_clock_main(sys.argv[2:]) if sys.argv[1:2] == ["phase-clock"]
              else main())

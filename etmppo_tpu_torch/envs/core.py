@@ -26,8 +26,13 @@ tensors with a leading worker axis, on the env's device.
   of the device rollout (``training/rollout.py``): the workers where
   ``done`` start a new episode from ``draws``, the others keep ``state`` and
   ``obs``. The default resets all workers and keeps the reset where
-  ``done`` (``select_state``); an env may do the same in a kernel of its own
-  (Mystery Path Grid on CUDA), which it lists in ``kernels``.
+  ``done`` (``select_state``); an env may do the same in a kernel of its own,
+  its ``reset_kernel``, which it lists in ``kernels`` and which rebuilds
+  only the workers whose episode ended: on CUDA Mystery Path Grid's
+  (``csrc/mystery_path_reset.cu``) and Mortar Mayhem Grid's
+  (``csrc/mortar_mayhem_reset.cu``, which picks the commands from the reset
+  draws' uniforms itself). Each gives the default's bits; on the CPU both
+  envs take the default.
 """
 from __future__ import annotations
 

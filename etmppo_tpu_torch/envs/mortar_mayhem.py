@@ -15,15 +15,32 @@ in [0, 1]; actions are the first ``allowed_commands`` command ids.
 
 The commands are the reset draws (``MortarMayhemResetDraws``): each is drawn
 uniformly among the commands that keep the target path inside the arena, the
-distribution of the JAX env's ``_sample_commands``.
+distribution of the JAX env's ``_sample_commands``. A reset draws one uniform
+per worker and command, ``command_count`` calls of ``torch.rand(draw_width)``
+in turn (``sample_reset_uniforms``), and ``commands_from_uniforms`` picks the
+commands from them: the ``floor(u * n)``-th of the ``n`` allowed commands, in
+id order, walking from the centre.
+
+The rollout's auto-reset (``reset_done``) is on CUDA one kernel,
+``csrc/mortar_mayhem_reset.cu`` (``MortarMayhemReset``): there
+``sample_reset_draws`` hands out the uniforms (``MortarMayhemResetUniforms``)
+and the kernel picks the commands, builds the targets and renders the fresh
+frame only for the workers whose episode ended, copying the others through.
+On the CPU ``reset_done`` is ``TorchEnv``'s reset of all workers kept where
+done, the path the tests hold against the JAX env, and ``sample_reset_draws``
+hands out the commands. ``reset`` takes either draws, so commands handed in
+directly (the JAX env's, in the tests) reset as before. Both paths give the
+same bits.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
 
+# The nvcc/ctypes build is to move out of the attention op (ROADMAP.md §E1).
+from ..ops.window_attention import _PACKAGE_DIR, _CudaKernel
 from .core import TorchEnv
 
 # command ids: 0 stay, 1 up(-y), 2 right(+x), 3 down(+y), 4 left(-x),
@@ -34,6 +51,8 @@ COMMAND_OFFSETS = np.array(
 SHOW_DURATION = 3
 SHOW_DELAY = 1
 GLYPH = 20
+OBS_SIDE = 84
+RESET_SOURCE = _PACKAGE_DIR / "csrc" / "mortar_mayhem_reset.cu"
 
 
 def glyphs(tile: int) -> np.ndarray:
@@ -61,6 +80,11 @@ class MortarMayhemResetDraws(NamedTuple):
     commands: torch.Tensor   # (W, C) int64 command ids
 
 
+class MortarMayhemResetUniforms(NamedTuple):
+    """The same reset before the pick: the uniforms it was drawn from."""
+    uniforms: torch.Tensor   # (W, C) float32 in [0, 1), command i's in column i
+
+
 class MortarMayhemState(NamedTuple):
     pos: torch.Tensor            # (W, 2) int64 (x, y)
     commands: torch.Tensor       # (W, C) int64
@@ -70,6 +94,68 @@ class MortarMayhemState(NamedTuple):
     failed: torch.Tensor         # (W,) bool
     reward_sum: torch.Tensor     # (W,) float32
     length: torch.Tensor         # (W,) int64
+
+
+class MortarMayhemReset(_CudaKernel):
+    """The auto-reset kernel (``csrc/mortar_mayhem_reset.cu``), built by nvcc
+    into ``_build`` like the window-attention kernels: ``reset(done, draws,
+    state, obs, glyph_table, arena, allowed_commands) -> (state, obs)`` with
+    the draws' uniforms, fresh tensors, on the current stream. The number of
+    commands is read from ``state.commands``; any number, any arena whose
+    tile is a pixel or more, and any ``allowed_commands`` of the nine ids."""
+
+    symbol = "mortar_mayhem_reset"
+    n_pointers = 3 + 2 * (len(MortarMayhemState._fields) + 1)
+    n_ints = 4
+
+    def __init__(self, source=RESET_SOURCE):
+        super().__init__(source)
+
+    def __call__(self, done: torch.Tensor, draws: MortarMayhemResetUniforms,
+                 state: MortarMayhemState, obs: torch.Tensor,
+                 glyph_table: torch.Tensor, arena: int,
+                 allowed_commands: int):
+        if not isinstance(draws, MortarMayhemResetUniforms):
+            raise ValueError(
+                "mortar_mayhem_reset: the draws must be the uniforms "
+                f"(MortarMayhemResetUniforms), got {type(draws).__name__}")
+        W, C = state.commands.shape
+        if not 1 <= arena <= OBS_SIDE:
+            raise ValueError(f"mortar_mayhem_reset: arena_size {arena} is "
+                             f"not in [1, {OBS_SIDE}]")
+        if not 1 <= allowed_commands <= len(COMMAND_OFFSETS):
+            raise ValueError(
+                f"mortar_mayhem_reset: allowed_commands {allowed_commands} "
+                f"is not in [1, {len(COMMAND_OFFSETS)}]")
+        want = dict(
+            done=(done, torch.bool, (W,)),
+            uniforms=(draws.uniforms, torch.float32, (W, C)),
+            glyphs=(glyph_table, torch.float32, (9, GLYPH, GLYPH)))
+        for name, x in zip(MortarMayhemState._fields, state):
+            shape = ((W, 2) if name == "pos" else (W, C) if name == "commands"
+                     else (W, C, 2) if name == "targets" else (W,))
+            dtype = (torch.bool if name == "failed" else torch.float32
+                     if name == "reward_sum" else torch.int64)
+            want[name] = (x, dtype, shape)
+        want["obs"] = (obs, torch.float32, (W, OBS_SIDE, OBS_SIDE, 3))
+        for name, (x, dtype, shape) in want.items():
+            if (x.dtype != dtype or tuple(x.shape) != shape
+                    or not x.is_contiguous()):
+                raise ValueError(
+                    f"mortar_mayhem_reset: {name} must be a contiguous "
+                    f"{dtype} tensor of shape {shape}, got {x.dtype} "
+                    f"{tuple(x.shape)} with strides {x.stride()}")
+        for name, (x, _, _) in want.items():
+            if x.device.type != "cuda" or x.device != done.device:
+                raise ValueError(
+                    f"mortar_mayhem_reset: {name} must be on the CUDA device "
+                    f"of done, got {x.device} and {done.device}")
+        out_state = MortarMayhemState(*(torch.empty_like(x) for x in state))
+        out_obs = torch.empty_like(obs)
+        self._launch([x.data_ptr() for x in (
+            done, draws.uniforms, glyph_table, *state, obs, *out_state,
+            out_obs)], (W, C, arena, allowed_commands), done.device)
+        return out_state, out_obs
 
 
 class MortarMayhemGridEnv(TorchEnv):
@@ -87,6 +173,9 @@ class MortarMayhemGridEnv(TorchEnv):
         self.r_episode = float(p.get("reward_episode_success", 0.0))
         self.n_workers = n_workers
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            self.reset_kernel = MortarMayhemReset()
+            self.kernels = (self.reset_kernel,)
 
         C = self.command_count
         self.announce_steps = C * (SHOW_DURATION + SHOW_DELAY)
@@ -170,25 +259,46 @@ class MortarMayhemGridEnv(TorchEnv):
 
     # --- protocol --------------------------------------------------------
 
-    def sample_reset_draws(self, generator: torch.Generator
-                           ) -> MortarMayhemResetDraws:
-        """Each command uniform among those whose target stays in the arena."""
+    def sample_reset_uniforms(self, generator: torch.Generator
+                              ) -> torch.Tensor:
+        """(W, C) float32: a reset's uniforms, one ``torch.rand(W)`` call a
+        command, in turn."""
         W = self.draw_width
+        return torch.stack([torch.rand(W, generator=generator,
+                                       device=self.device)
+                            for _ in range(self.command_count)], dim=1)
+
+    def commands_from_uniforms(self, uniforms: torch.Tensor) -> torch.Tensor:
+        """(W, C) int64: each command uniform among those whose target stays
+        in the arena, the ``floor(u * n)``-th of the ``n`` allowed."""
+        W = uniforms.shape[0]
         pos = self._start.expand(W, -1)
         commands = []
-        for _ in range(self.command_count):
+        for i in range(uniforms.shape[1]):
             cand = pos[:, None, :] + self._offsets               # (W, A, 2)
             ok = ((cand >= 0) & (cand < self.arena)).all(dim=2)  # (W, A)
-            u = torch.rand(W, generator=generator, device=self.device)
-            pick = (u * ok.sum(dim=1)).long()                    # k-th valid
+            pick = (uniforms[:, i] * ok.sum(dim=1)).long()       # k-th valid
             rank = torch.cumsum(ok.long(), dim=1) - 1
             cmd = ((rank == pick[:, None]) & ok).long().argmax(dim=1)
             commands.append(cmd)
             pos = cand[torch.arange(W, device=self.device), cmd]
-        return MortarMayhemResetDraws(torch.stack(commands, dim=1))
+        return torch.stack(commands, dim=1)
 
-    def reset(self, draws: MortarMayhemResetDraws):
-        commands = draws.commands.long()
+    def sample_reset_draws(self, generator: torch.Generator
+                           ) -> Union[MortarMayhemResetDraws,
+                                      MortarMayhemResetUniforms]:
+        """The uniforms where the reset kernel picks the commands, else the
+        commands picked from them."""
+        uniforms = self.sample_reset_uniforms(generator)
+        if self.reset_kernel is not None:
+            return MortarMayhemResetUniforms(uniforms)
+        return MortarMayhemResetDraws(self.commands_from_uniforms(uniforms))
+
+    def reset(self, draws: Union[MortarMayhemResetDraws,
+                                 MortarMayhemResetUniforms]):
+        commands = (self.commands_from_uniforms(draws.uniforms)
+                    if isinstance(draws, MortarMayhemResetUniforms)
+                    else draws.commands.long())
         W = commands.shape[0]
         zeros = torch.zeros(W, dtype=torch.int64, device=self.device)
         state = MortarMayhemState(
@@ -197,6 +307,15 @@ class MortarMayhemGridEnv(TorchEnv):
             failed=torch.zeros(W, dtype=torch.bool, device=self.device),
             reward_sum=torch.zeros(W, device=self.device), length=zeros)
         return state, self._observe(state)
+
+    def reset_done(self, done: torch.Tensor,
+                   draws: Union[MortarMayhemResetDraws,
+                                MortarMayhemResetUniforms],
+                   state: MortarMayhemState, obs: torch.Tensor):
+        if self.reset_kernel is None:
+            return super().reset_done(done, draws, state, obs)
+        return self.reset_kernel(done, draws, state, obs, self._glyphs,
+                                 self.arena, self.allowed_commands)
 
     def step(self, state: MortarMayhemState, actions: torch.Tensor,
              draws=None):

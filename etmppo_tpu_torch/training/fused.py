@@ -53,7 +53,7 @@ buffer, and the chunk's end gathers them once and raises naming the first
 update whose digests differ between the ranks (``check_replicated``).
 
 The window-attention wrappers and an env's kernels (Mystery Path Grid's
-reset) count their launches in Python, which a replay does not run. The loop
+and Mortar Mayhem Grid's resets) count their launches in Python, which a replay does not run. The loop
 takes each kernel's launches during a capture, takes them back afterwards (a
 capture runs nothing), and adds them at every replay, so the counts stay the
 number of kernels that ran; ``capture`` keeps the env's reset kernel's
