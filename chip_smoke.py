@@ -95,7 +95,7 @@ Phases, each printing one line with its seconds:
 6. mortarmayhem: two PPO updates of the Mortar Mayhem Grid flagship exactly
                 as its YAML says (32 workers x 512 steps, TrXL 3 x 384,
                 memory 118, 3 epochs x 8 minibatches) with the grouped
-                kernels (PPOTrainer(..., grouped=True)); each grouped kernel
+                kernels (grouped_attention: true); each grouped kernel
                 must launch exactly 72 times per update (3 blocks x 24
                 minibatches), the per-sample ones never, the env's reset
                 kernel 512 times per update (one launch a rollout step),
@@ -1277,9 +1277,8 @@ def run_mortarmayhem(device, k) -> tuple:
     with tempfile.TemporaryDirectory() as tmp:
         config = dataclasses.replace(
             config_from_dict(MORTAR_MAYHEM_GRID), updates=UPDATES,
-            summary_dir=tmp, checkpoint_dir=tmp)
-        trainer = PPOTrainer(config, run_id="mmg", device=device,
-                             grouped=True)
+            summary_dir=tmp, checkpoint_dir=tmp, grouped_attention=True)
+        trainer = PPOTrainer(config, run_id="mmg", device=device)
         try:
             upd = trainer.update_fn
             if (upd.kernel, upd.backward_kernel) != grouped:
@@ -2836,7 +2835,8 @@ def run_data_parallel(device, k) -> list:
             num_devices=DP_RANKS, summary_dir=tmp, checkpoint_dir=tmp)
         mortar = dataclasses.replace(
             config_from_dict(MORTAR_MAYHEM_GRID), updates=1,
-            num_devices=DP_RANKS, summary_dir=tmp, checkpoint_dir=tmp)
+            num_devices=DP_RANKS, summary_dir=tmp, checkpoint_dir=tmp,
+            grouped_attention=True)
         W, T = flagship.n_workers, flagship.worker_steps
         fields = ("actions", "values")
         one = probe.train(None, dataclasses.replace(flagship, num_devices=1),
@@ -2868,10 +2868,11 @@ def run_data_parallel(device, k) -> list:
                     timed_collectives=True, save_model=True, device=device,
                     replay=replay)),
                 (probe.train, mortar, dict(
-                    run_id="dpmmg", grouped=True, updates=1,
+                    run_id="dpmmg", updates=1,
                     keep_params=False, device=device)),
-                (probe.fused_against_eager, flagship, dict(
-                    chunk=FM_CHUNK, chunks=FM_CHUNKS, grouped=True,
+                (probe.fused_against_eager, dataclasses.replace(
+                    flagship, grouped_attention=True), dict(
+                    chunk=FM_CHUNK, chunks=FM_CHUNKS,
                     deterministic=True, device=device, stand_in=on_cpu,
                     perturb=(1, 1))),
                 (probe.train, dataclasses.replace(
@@ -3170,9 +3171,10 @@ def fused_trainer(raw: dict, tmp: str, run_id: str, device, grouped: bool,
     from etmppo_tpu_torch.training.trainer import PPOTrainer
     config = dataclasses.replace(
         config_from_dict(raw), updates_per_launch=FUSED_CHUNK,
-        summary_dir=tmp, checkpoint_dir=tmp, **overrides)
+        summary_dir=tmp, checkpoint_dir=tmp, grouped_attention=grouped,
+        **overrides)
     trainer = PPOTrainer(config, run_id=run_id, device=device,
-                         enable_metrics=False, grouped=grouped)
+                         enable_metrics=False)
     check_graph_route(trainer, run_id)
     return trainer
 

@@ -59,7 +59,7 @@ class TorchEnv:
     n_workers: int
     device: torch.device
     draw_workers: Optional[int] = None      # set by envs/factory.create_env
-    kernels: Tuple[Any, ...] = ()           # its CUDA kernels (_CudaKernel)
+    kernels: Tuple[Any, ...] = ()           # its CUDA kernels (CudaKernel)
     reset_kernel: Any = None                # the one of them in reset_done
 
     @property

@@ -94,6 +94,8 @@ class HostEnvBatch:
     installed) or pass ``make_env`` explicitly for custom/test envs.
     """
 
+    kernels = ()        # it launches no CUDA kernel
+
     def __init__(self, config=None, make_env: Optional[Callable] = None,
                  n_envs: int = 0, n_procs: int = 0):
         if make_env is None:

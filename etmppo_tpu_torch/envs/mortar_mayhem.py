@@ -39,8 +39,7 @@ from typing import Dict, NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
-# The nvcc/ctypes build is to move out of the attention op (ROADMAP.md §E1).
-from ..ops.window_attention import _PACKAGE_DIR, _CudaKernel
+from ..utils.build import CSRC, CudaKernel, check_tensors
 from .core import TorchEnv
 
 # command ids: 0 stay, 1 up(-y), 2 right(+x), 3 down(+y), 4 left(-x),
@@ -52,7 +51,7 @@ SHOW_DURATION = 3
 SHOW_DELAY = 1
 GLYPH = 20
 OBS_SIDE = 84
-RESET_SOURCE = _PACKAGE_DIR / "csrc" / "mortar_mayhem_reset.cu"
+RESET_SOURCE = CSRC / "mortar_mayhem_reset.cu"
 
 
 def glyphs(tile: int) -> np.ndarray:
@@ -96,20 +95,18 @@ class MortarMayhemState(NamedTuple):
     length: torch.Tensor         # (W,) int64
 
 
-class MortarMayhemReset(_CudaKernel):
-    """The auto-reset kernel (``csrc/mortar_mayhem_reset.cu``), built by nvcc
-    into ``_build`` like the window-attention kernels: ``reset(done, draws,
-    state, obs, glyph_table, arena, allowed_commands) -> (state, obs)`` with
-    the draws' uniforms, fresh tensors, on the current stream. The number of
-    commands is read from ``state.commands``; any number, any arena whose
-    tile is a pixel or more, and any ``allowed_commands`` of the nine ids."""
+class MortarMayhemReset(CudaKernel):
+    """The auto-reset kernel (``csrc/mortar_mayhem_reset.cu``): ``reset(done,
+    draws, state, obs, glyph_table, arena, allowed_commands) -> (state,
+    obs)`` with the draws' uniforms, fresh tensors, on the current stream.
+    The number of commands is read from ``state.commands``; any number, any
+    arena whose tile is a pixel or more, and any ``allowed_commands`` of the
+    nine ids."""
 
+    default_source = RESET_SOURCE
     symbol = "mortar_mayhem_reset"
     n_pointers = 3 + 2 * (len(MortarMayhemState._fields) + 1)
     n_ints = 4
-
-    def __init__(self, source=RESET_SOURCE):
-        super().__init__(source)
 
     def __call__(self, done: torch.Tensor, draws: MortarMayhemResetUniforms,
                  state: MortarMayhemState, obs: torch.Tensor,
@@ -138,18 +135,7 @@ class MortarMayhemReset(_CudaKernel):
                      if name == "reward_sum" else torch.int64)
             want[name] = (x, dtype, shape)
         want["obs"] = (obs, torch.float32, (W, OBS_SIDE, OBS_SIDE, 3))
-        for name, (x, dtype, shape) in want.items():
-            if (x.dtype != dtype or tuple(x.shape) != shape
-                    or not x.is_contiguous()):
-                raise ValueError(
-                    f"mortar_mayhem_reset: {name} must be a contiguous "
-                    f"{dtype} tensor of shape {shape}, got {x.dtype} "
-                    f"{tuple(x.shape)} with strides {x.stride()}")
-        for name, (x, _, _) in want.items():
-            if x.device.type != "cuda" or x.device != done.device:
-                raise ValueError(
-                    f"mortar_mayhem_reset: {name} must be on the CUDA device "
-                    f"of done, got {x.device} and {done.device}")
+        check_tensors(self.symbol, want)
         out_state = MortarMayhemState(*(torch.empty_like(x) for x in state))
         out_obs = torch.empty_like(obs)
         self._launch([x.data_ptr() for x in (

@@ -28,14 +28,14 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..ops.window_attention import _PACKAGE_DIR, _CudaKernel
+from ..utils.build import CSRC, CudaKernel, check_tensors
 from .core import TorchEnv
 
 # actions: 0 up(-y), 1 right(+x), 2 down(+y), 3 left(-x)
 MOVE_OFFSETS = np.array([[0, -1], [1, 0], [0, 1], [-1, 0]], np.int64)
 INT32_MAX = 2 ** 31 - 1
 OBS_SIDE = 84
-RESET_SOURCE = _PACKAGE_DIR / "csrc" / "mystery_path_reset.cu"
+RESET_SOURCE = CSRC / "mystery_path_reset.cu"
 
 
 class MysteryPathResetDraws(NamedTuple):
@@ -59,18 +59,16 @@ class MysteryPathState(NamedTuple):
     length: torch.Tensor         # (W,) int64
 
 
-class MysteryPathReset(_CudaKernel):
-    """The auto-reset kernel (``csrc/mystery_path_reset.cu``), built by nvcc
-    into ``_build`` like the window-attention kernels: ``reset(done, draws,
-    state, obs, show_origin, show_goal) -> (state, obs)``, fresh tensors, on
-    the current stream. The arena's size is read from ``state.on_path``."""
+class MysteryPathReset(CudaKernel):
+    """The auto-reset kernel (``csrc/mystery_path_reset.cu``): ``reset(done,
+    draws, state, obs, show_origin, show_goal) -> (state, obs)``, fresh
+    tensors, on the current stream. The arena's size is read from
+    ``state.on_path``."""
 
+    default_source = RESET_SOURCE
     symbol = "mystery_path_reset"
     n_pointers = 4 + 2 * (len(MysteryPathState._fields) + 1)
     n_ints = 4
-
-    def __init__(self, source=RESET_SOURCE):
-        super().__init__(source)
 
     def __call__(self, done: torch.Tensor, draws: MysteryPathResetDraws,
                  state: MysteryPathState, obs: torch.Tensor,
@@ -92,18 +90,7 @@ class MysteryPathReset(_CudaKernel):
             dtype = (torch.bool if name == "on_path" else torch.float32
                      if name == "reward_sum" else torch.int64)
             want[name] = (x, dtype, shape)
-        for name, (x, dtype, shape) in want.items():
-            if (x.dtype != dtype or tuple(x.shape) != shape
-                    or not x.is_contiguous()):
-                raise ValueError(
-                    f"mystery_path_reset: {name} must be a contiguous "
-                    f"{dtype} tensor of shape {shape}, got {x.dtype} "
-                    f"{tuple(x.shape)} with strides {x.stride()}")
-        for name, (x, _, _) in want.items():
-            if x.device.type != "cuda" or x.device != done.device:
-                raise ValueError(
-                    f"mystery_path_reset: {name} must be on the CUDA device "
-                    f"of done, got {x.device} and {done.device}")
+        check_tensors(self.symbol, want)
         out_state = MysteryPathState(*(torch.empty_like(x) for x in state))
         out_obs = torch.empty_like(obs)
         self._launch([x.data_ptr() for x in (

@@ -8,28 +8,26 @@ a native thread pool without the interpreter (``csrc/env_batch.cpp``, a copy
 of the JAX package's ``native/env_batch.cpp``).
 
 The shared library is built on first use with g++ into the package's
-``_build/`` directory, keyed by a hash of the source and the flags, with the
-JAX package's flags exactly (no ``-ffast-math``), so the two engines give
-the same bits. Each env has its own ``std::mt19937``, seeded from the batch
-seed and its index, so results do not depend on the thread count.
+``_build/`` directory by ``utils/build.build``, keyed by a hash of the
+source and the flags, with the JAX package's flags exactly (no
+``-ffast-math``), so the two engines give the same bits. Each env has its
+own ``std::mt19937``, seeded from the batch seed and its index, so results
+do not depend on the thread count.
 Environment types: ``CartPole-native``, ``CartPoleMasked-native``,
 ``PocMemoryEnv-native``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-_PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE_DIR / "csrc" / "env_batch.cpp"
-BUILD_DIR = _PACKAGE_DIR / "_build"
+from ..utils import build
+
+SOURCE = build.CSRC / "env_batch.cpp"
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 ENV_TYPE_IDS = {
@@ -41,33 +39,14 @@ ENV_TYPE_IDS = {
 
 def library_path() -> Path:
     """The library's path, keyed by the source and g++'s flags."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"env_batch_{digest}.so"
+    return build.library_path(SOURCE, GXX_FLAGS, build.BUILD_DIR)
 
 
 def build_native_library() -> Path:
-    """Compiles ``csrc/env_batch.cpp`` with g++ unless a library built from
-    the same source and flags is already there; returns its path. The build
-    goes to a temporary name that is then moved into place, so two processes
-    building at once each see a whole library."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(["g++", *GXX_FLAGS, str(SOURCE), "-o", tmp],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed on {SOURCE.name} "
-                               f"({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    """Compiles ``csrc/env_batch.cpp`` with g++ (``utils/build.build``)
+    unless a library built from the same source and flags is already there;
+    returns its path."""
+    return build.build("g++", GXX_FLAGS, SOURCE, build.BUILD_DIR)
 
 
 def _load_library() -> ctypes.CDLL:
@@ -101,6 +80,7 @@ class NativeEnvBatch:
     """HostEnvBatch-compatible native environment batch."""
 
     info_keys = ("reward", "length", "success")
+    kernels = ()        # it launches no CUDA kernel
 
     def __init__(self, env_type: str, seed: int = 0,
                  n_threads: Optional[int] = None):

@@ -27,9 +27,10 @@ window is ``timeline[w_idx[b], start[b] : start[b] + n_valid[b]]`` followed by
   (``csrc/window_runs.cuh``); the backward free of atomics and bit-for-bit
   repeatable; ``grouped_forward_plan`` and ``grouped_backward_plan`` choose
   their launch, and ``grouped_order``, ``grouped_runs``, ``run_tiles`` and
-  ``reduce_candidates`` state their walk in Python for the CPU tests). nvcc
-  builds each at first use into a shared library with a plain C interface,
-  loaded with ctypes; each keeps a count of its launches.
+  ``reduce_candidates`` state their walk in Python for the CPU tests). Each
+  is a ``utils/build.CudaKernel``: nvcc builds it at first use into a shared
+  library with a plain C interface, loaded with ctypes; each keeps a count
+  of its launches. ``ATTENTION_SYMBOLS`` names the four.
 * ``window_attention`` is the autograd op. The caller picks the forward
   (``kernel``) and the backward (``backward_kernel``) per call, which mirrors
   the JAX package's ``GROUPED_MODE`` and ``BACKWARD_MODE`` switches: the
@@ -42,28 +43,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import re
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from ..utils.build import CSRC, CudaKernel
+
 MASK_FILL = -1e20
 
-_PACKAGE_DIR = Path(__file__).resolve().parent.parent
-FWD_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_fwd.cu"
-BWD_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_bwd.cu"
-FWD_GROUPED_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_fwd_grouped.cu"
-BWD_GROUPED_SOURCE = _PACKAGE_DIR / "csrc" / "window_attention_bwd_grouped.cu"
-BUILD_DIR = _PACKAGE_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+FWD_SOURCE = CSRC / "window_attention_fwd.cu"
+BWD_SOURCE = CSRC / "window_attention_bwd.cu"
+FWD_GROUPED_SOURCE = CSRC / "window_attention_fwd_grouped.cu"
+BWD_GROUPED_SOURCE = CSRC / "window_attention_bwd_grouped.cu"
 # Launch limits of the per-sample kernels: shared memory a CTA may have on
 # sm_90 (227 KB), the most that lets two CTAs share an SM's 228 KB (each
 # holds 1 KB back), and the kernels' __launch_bounds__.
@@ -468,117 +460,16 @@ def reduce_candidates(sorted_start, seg, w: int, t0: int, L: int,
             s0 + sum(st < t0 + rows for st in starts))
 
 
-class _CudaKernel:
-    """A CUDA source built by nvcc on first use into a shared library with a
-    plain C interface, loaded with ctypes. Subclasses launch it on the current
-    stream and count each launch in ``launches``."""
-
-    symbol = ""
-    n_pointers = 0
-    n_ints = 7
-
-    def __init__(self, source: Path, build_dir: Path = BUILD_DIR):
-        self.source = Path(source)
-        self.build_dir = Path(build_dir)
-        self.launches = 0
-        self._lib = None
-
-    def library_path(self) -> Path:
-        """The library's path, keyed by the source, the headers it includes
-        from its own directory and nvcc's flags."""
-        text = self.source.read_bytes()
-        headers = re.findall(rb'#include "([^"]+)"', text)
-        digest = hashlib.sha256(
-            text + b"".join((self.source.parent / h.decode()).read_bytes()
-                            for h in headers)
-            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return self.build_dir / f"{self.source.stem}_{digest}.so"
-
-    def build(self) -> Path:
-        """Compiles the source with nvcc unless a library built from the same
-        source and flags is already there, keeping nvcc's report (``-Xptxas
-        -v``) beside it. Returns the library's path."""
-        out = self.library_path()
-        if out.exists():
-            return out
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError(f"nvcc not found: {self.source.name} cannot "
-                               "be built")
-        self.build_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(self.source)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {self.source.name} ({proc.returncode}):"
-                    f"\n{proc.stdout}{proc.stderr}")
-            self._report_path(out).write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        return out
-
-    @staticmethod
-    def _report_path(library: Path) -> Path:
-        return library.with_suffix(".ptxas.txt")
-
-    def resources(self) -> list:
-        """Registers, spills and static shared memory of each kernel function
-        in the built library, from nvcc's report: a list of dicts."""
-        text = self._report_path(self.build()).read_text()
-        found = []
-        for chunk in text.split("Compiling entry function")[1:]:
-            name = chunk.split("'")[1]
-            nums = lambda pattern: [int(x) for x in re.findall(pattern, chunk)]
-            regs = nums(r"Used (\d+) registers")
-            spills = nums(r"(\d+) bytes spill (?:stores|loads)")
-            smem = nums(r"(\d+) bytes smem")
-            found.append(dict(function=name, registers=regs[0] if regs else 0,
-                              spill_bytes=sum(spills),
-                              static_smem=smem[0] if smem else 0))
-        return found
-
-    def load(self) -> None:
-        """Builds the library if needed and loads it (the trainer does so
-        while it is set up, before its first launch)."""
-        self._function()
-
-    def _function(self):
-        if self._lib is None:
-            lib = ctypes.CDLL(str(self.build()))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = [ctypes.c_void_p] * self.n_pointers + [
-                ctypes.c_int] * self.n_ints + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._lib = lib
-        return getattr(self._lib, self.symbol)
-
-    def _launch(self, pointers, ints, device) -> None:
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = self._function()(*pointers, *ints, stream)
-        if err != 0:
-            raise RuntimeError(
-                f"{self.symbol} launch failed: CUDA error {err}")
-        self.launches += 1
-
-
-class WindowAttentionForward(_CudaKernel):
+class WindowAttentionForward(CudaKernel):
     """The CUDA forward kernel, a CTA per sample with all its heads: out
     (B, D). ``forward_plan`` chooses the launch."""
 
+    default_source = FWD_SOURCE
     symbol = "window_attention_fwd"
     n_pointers = 11
     n_ints = 7 + len(ForwardPlan._fields)
     plain = staticmethod(window_attention_plain)
 
-    def __init__(self, source: Path = FWD_SOURCE,
-                 build_dir: Path = BUILD_DIR):
-        super().__init__(source, build_dir)
 
     def __call__(self, q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
                  n_valid, s_lo, mask, num_heads: int) -> torch.Tensor:
@@ -595,7 +486,7 @@ class WindowAttentionForward(_CudaKernel):
         return out
 
 
-class WindowAttentionBackward(_CudaKernel):
+class WindowAttentionBackward(CudaKernel):
     """The CUDA backward kernel, a CTA per sample with all its heads: (dq,
     dtk, dtv, dpk, dpv) for the output gradient g. ``backward_plan`` chooses
     the launch. The gradient tables are zeroed on the current stream, then
@@ -603,14 +494,12 @@ class WindowAttentionBackward(_CudaKernel):
     from run to run (``WindowAttentionBackwardGrouped`` is the deterministic
     alternative)."""
 
+    default_source = BWD_SOURCE
     symbol = "window_attention_bwd"
     n_pointers = 16
     n_ints = 7 + len(BackwardPlan._fields)
     plain = staticmethod(window_attention_bwd_plain)
 
-    def __init__(self, source: Path = BWD_SOURCE,
-                 build_dir: Path = BUILD_DIR):
-        super().__init__(source, build_dir)
 
     def __call__(self, q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
                  n_valid, s_lo, mask, g, num_heads: int):
@@ -629,20 +518,18 @@ class WindowAttentionBackward(_CudaKernel):
         return (dq, *grads)
 
 
-class WindowAttentionForwardGrouped(_CudaKernel):
+class WindowAttentionForwardGrouped(CudaKernel):
     """The grouped CUDA forward: out (B, D). One call launches the sort of
     the minibatch by (worker, start) on the card and then the kernel, a CTA
     per run of sorted samples of one worker (``grouped_forward_plan``); each
     output goes straight to its own row."""
 
+    default_source = FWD_GROUPED_SOURCE
     symbol = "window_attention_fwd_grouped"
     n_pointers = 13
     n_ints = 7 + len(GroupedPlan._fields)
     plain = staticmethod(window_attention_grouped_plain)
 
-    def __init__(self, source: Path = FWD_GROUPED_SOURCE,
-                 build_dir: Path = BUILD_DIR):
-        super().__init__(source, build_dir)
 
     def __call__(self, q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
                  n_valid, s_lo, mask, num_heads: int) -> torch.Tensor:
@@ -687,7 +574,7 @@ class WindowAttentionForwardGrouped(_CudaKernel):
         return meta.view(5, B), seg
 
 
-class WindowAttentionBackwardGrouped(_CudaKernel):
+class WindowAttentionBackwardGrouped(CudaKernel):
     """The grouped, deterministic CUDA backward: (dq, dtk, dtv, dpk, dpv) for
     the output gradient g. No float is added atomically and every entry is
     summed in one fixed order (the minibatch sorted by (worker, start)), so
@@ -695,15 +582,12 @@ class WindowAttentionBackwardGrouped(_CudaKernel):
     and the kernel's three passes and counts as one launch;
     ``grouped_backward_plan`` chooses the first pass's launch."""
 
+    default_source = BWD_GROUPED_SOURCE
     symbol = "window_attention_bwd_grouped"
     n_pointers = 22
     n_ints = 7 + len(GroupedPlan._fields)
     plain = staticmethod(window_attention_grouped_bwd_plain)
-
-    def __init__(self, source: Path = BWD_GROUPED_SOURCE,
-                 build_dir: Path = BUILD_DIR):
-        super().__init__(source, build_dir)
-        self._pe_chunk = None
+    _pe_chunk: Optional[int] = None
 
     def pe_chunk(self) -> int:
         """Sorted samples per partial PE-gradient sum, as the source sets."""
@@ -806,6 +690,12 @@ window_attention_fwd = WindowAttentionForward()
 window_attention_bwd = WindowAttentionBackward()
 window_attention_fwd_grouped = WindowAttentionForwardGrouped()
 window_attention_bwd_grouped = WindowAttentionBackwardGrouped()
+# The window-attention kernels' symbols, by which the fused loop's
+# ``capture["attention_launches"]`` counts: the per-sample pair and the
+# grouped pair (each singleton above is named by its symbol).
+ATTENTION_SYMBOLS = tuple(k.symbol for k in (
+    window_attention_fwd, window_attention_bwd, window_attention_fwd_grouped,
+    window_attention_bwd_grouped))
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -844,8 +734,8 @@ class _WindowAttention(torch.autograd.Function):
 
 def window_attention(q, timeline_k, timeline_v, pe_k, pe_v, w_idx, start,
                      n_valid, s_lo, mask, num_heads: int,
-                     kernel: Optional[_CudaKernel] = window_attention_fwd,
-                     backward_kernel: Optional[_CudaKernel] = None):
+                     kernel: Optional[CudaKernel] = window_attention_fwd,
+                     backward_kernel: Optional[CudaKernel] = None):
     """Differentiable window attention (counterpart of
     ``fused_window_attention``). CUDA inputs go forward through ``kernel``
     (the per-sample or the grouped forward) and backward through

@@ -39,9 +39,6 @@ from .multihost import (global_worker_array, initialize_multihost,
                         is_primary_host, local_worker_range,
                         process_index)
 
-KERNELS = ("window_attention_fwd", "window_attention_bwd",
-           "window_attention_fwd_grouped", "window_attention_bwd_grouped")
-
 
 class Replay(NamedTuple):
     """Draws for all W workers, made elsewhere: the reset draws in the order
@@ -155,8 +152,7 @@ def _sample_actions(fn, replay: Optional[Replay], sampled: list,
 
 
 def train(mesh: Optional[DataMesh], config: TrainConfig, run_id: str = "probe",
-          updates: int = 1, grouped: Optional[bool] = None,
-          resume: bool = False,
+          updates: int = 1, resume: bool = False,
           replay: Optional[Replay] = None,
           state_dict: Optional[Dict[str, torch.Tensor]] = None,
           batch_fields: Sequence[str] = (), keep_params: bool = True,
@@ -201,8 +197,8 @@ def train(mesh: Optional[DataMesh], config: TrainConfig, run_id: str = "probe",
         from ..envs.host import HostEnvBatch
         env = HostEnvBatch(make_env=StubEnv, n_procs=stub_pool)
     trainer = PPOTrainer(config, run_id=run_id, device=device,
-                         enable_metrics=False, grouped=grouped, mesh=mesh,
-                         env=env, phase_clock=phase_clock)
+                         enable_metrics=False, mesh=mesh, env=env,
+                         phase_clock=phase_clock)
     try:
         if state_dict is not None:
             trainer.model.load_state_dict(state_dict)
@@ -255,7 +251,7 @@ def train(mesh: Optional[DataMesh], config: TrainConfig, run_id: str = "probe",
             pre.remove()
         if not (keep_params and chunk):
             post.remove()
-        kernels = {name: getattr(wa, name) for name in KERNELS}
+        kernels = {name: getattr(wa, name) for name in wa.ATTENTION_SYMBOLS}
         for k in kernels.values():
             k.launches = 0
         out: Dict[str, Any] = dict(results=[], digests=[], params=[],
@@ -464,7 +460,7 @@ class StandInGraphs:
 
         def replay(self) -> None:
             self.replays += 1
-            kernels = self.owner.trainer.fused_loop._kernels()
+            kernels = self.owner.trainer.fused_loop.kernels
             counts = [k.launches for k in kernels]
             self.owner.pending()
             for k, n in zip(kernels, counts):
@@ -561,10 +557,9 @@ def _perturb_after(trainer, mesh: DataMesh, rank: int, after: int) -> None:
 
 
 def fused_against_eager(mesh: DataMesh, config: TrainConfig, chunk: int,
-                        chunks: int = 1, grouped: Optional[bool] = None,
-                        device="cpu", deterministic: bool = False,
-                        stand_in: bool = False, resume: bool = False,
-                        perturb: Optional[tuple] = None,
+                        chunks: int = 1, device="cpu",
+                        deterministic: bool = False, stand_in: bool = False,
+                        resume: bool = False, perturb: Optional[tuple] = None,
                         threads: Optional[int] = None) -> Dict[str, Any]:
     """This rank's twin trainers of ``config`` (one seed) under ``mesh``:
     ``eager`` runs ``chunks`` fused launches of ``chunk`` updates on the
@@ -597,8 +592,7 @@ def fused_against_eager(mesh: DataMesh, config: TrainConfig, chunk: int,
             for name in ("eager", "fused"):
                 trainers[name] = PPOTrainer(config, run_id=name,
                                             device=device,
-                                            enable_metrics=False,
-                                            grouped=grouped, mesh=mesh)
+                                            enable_metrics=False, mesh=mesh)
             eager, fused = trainers["eager"], trainers["fused"]
             eager.fused_loop = FusedTrainLoop(eager.rollout_fn,
                                               eager.update_fn, "eager", mesh)

@@ -52,14 +52,15 @@ update writes its parameters' ``replica_digest`` into row k of a (K, 2)
 buffer, and the chunk's end gathers them once and raises naming the first
 update whose digests differ between the ranks (``check_replicated``).
 
-The window-attention wrappers and an env's kernels (Mystery Path Grid's
-and Mortar Mayhem Grid's resets) count their launches in Python, which a replay does not run. The loop
-takes each kernel's launches during a capture, takes them back afterwards (a
-capture runs nothing), and adds them at every replay, so the counts stay the
-number of kernels that ran; ``capture`` keeps the env's reset kernel's
+Every component that launches CUDA kernels lists them in its ``kernels``
+(the update's window-attention pair, the env's reset, the clock's stamp),
+and each counts its launches in Python, which a replay does not run. A
+capture takes the launches of the kernels listed then, puts the counts back
+(a capture runs nothing), and every replay adds them, so the counts stay
+the number of kernels that ran; ``capture`` keeps the env's reset kernel's
 (``reset_launches``) and each window-attention kernel's by its symbol
-(``attention_launches``) in a captured update. The
-collectives run between the replays, so the mesh's traffic counts are true.
+(``attention_launches``) in a captured update. The collectives run between
+the replays, so the mesh's traffic counts are true.
 """
 from __future__ import annotations
 
@@ -70,21 +71,12 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.window_attention import (window_attention_bwd,
-                                    window_attention_bwd_grouped,
-                                    window_attention_fwd,
-                                    window_attention_fwd_grouped)
+from ..ops.window_attention import ATTENTION_SYMBOLS
 from ..parallel.mesh import DataMesh, check_replicated, replica_digest
 from ..utils.profiling import PhaseClock
 from ..utils.runtime import debug_nans_enabled, nan_errors
 from .ppo import PPOUpdate, Segments
 from .rollout import RolloutBatch, RolloutFn, RolloutState
-
-# The window-attention kernels' symbols, which ``capture["attention_launches"]``
-# counts: the per-sample pair and the grouped pair.
-ATTENTION_SYMBOLS = tuple(k.symbol for k in (
-    window_attention_fwd, window_attention_bwd, window_attention_fwd_grouped,
-    window_attention_bwd_grouped))
 
 
 class ChunkOutputs(NamedTuple):
@@ -227,6 +219,18 @@ def mesh_update(rollout_fn, update_fn: PPOUpdate, mesh: DataMesh, state,
             slots.per_step, grad_keys, slots.info_keys, slots.digest)
 
 
+def launch_counts(launches: Dict, reset_kernel) -> Dict:
+    """Of a capture's kernel ``launches`` (kernel: launches), the env's
+    ``reset_kernel``'s (``reset_launches``) and each window-attention
+    kernel's by symbol (``attention_launches``, 0 for one not there)."""
+    attention = dict.fromkeys(ATTENTION_SYMBOLS, 0)
+    for kernel, n in launches.items():
+        if kernel.symbol in attention:
+            attention[kernel.symbol] += n
+    return dict(reset_launches=launches.get(reset_kernel, 0),
+                attention_launches=attention)
+
+
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
     """The nodes of a captured graph (``keep_graph=True``), from
     ``cuGraphGetNodes`` in libcuda."""
@@ -276,12 +280,13 @@ class FusedTrainLoop(Segments):
         self._stream = None
         self._state: Optional[RolloutState] = None
         self._outputs: Optional[Tuple[torch.Tensor, ...]] = None
-        self._replay_launches: Dict = {}
-        # Under a mesh: the segments' graphs, their pool, the launches of
-        # each, what passes between them, and how ``segment`` runs one.
+        # Each captured graph's kernel launches, by its name (``update`` on
+        # one device, the segment's under a mesh).
+        self._launches: Dict[str, Dict] = {}
+        # Under a mesh: the segments' graphs, their pool, what passes
+        # between them, and how ``segment`` runs one.
         self._graphs: Dict[str, torch.cuda.CUDAGraph] = {}
         self._pool = None
-        self._segment_launches: Dict[str, Dict] = {}
         self._slots = mesh_slots()
         self._mode = "eager"
 
@@ -379,61 +384,65 @@ class FusedTrainLoop(Segments):
         self._outputs[1].copy_(per_step)
         self._close_update()
 
-    def _kernels(self) -> list:
+    @property
+    def kernels(self) -> tuple:
         """The CUDA kernels whose launches a capture moves to the replays:
-        the update's window-attention pair and the env's (its reset)."""
-        upd = self.update_fn
-        return ([k for k in {upd.kernel, upd.backward_kernel}
-                 if k is not None] + list(self.rollout_fn.env.kernels))
+        the update's, the env's and the clock's, as each lists them now."""
+        return (*self.update_fn.kernels, *self.rollout_fn.env.kernels,
+                *self.clock.kernels)
 
-    def _reset_launches(self, launches: Dict) -> int:
-        """Of a capture's kernel ``launches``, the env's reset kernel's."""
-        return launches.get(self.rollout_fn.env.reset_kernel, 0)
-
-    def _attention_launches(self, launches: Dict) -> Dict[str, int]:
-        """Of a capture's kernel ``launches``, each window-attention
-        kernel's by symbol (0 for a kernel the update does not take)."""
-        counts = dict.fromkeys(ATTENTION_SYMBOLS, 0)
-        upd = self.update_fn
-        for kernel in (upd.kernel, upd.backward_kernel):
-            if kernel is not None:
-                counts[kernel.symbol] = launches.get(kernel, 0)
-        return counts
-
-    def _capture(self) -> None:
-        if self.mesh is not None:
-            self._capture_segments()
-            return
+    def _capture_graph(self, name: str, fn, generators, before_capture,
+                       **graph_options):
+        """Captures ``fn`` into a CUDA graph that draws from ``generators``,
+        after ``before_capture()`` and with ``torch.cuda.graph``'s
+        ``graph_options``, and instantiates it. Moves the launches of the
+        kernels listed now to ``name``'s replays (``_replay_graph``).
+        Returns the graph and its record: the clock's capture and
+        instantiation seconds, its nodes, the bytes its pool reserved and
+        its ``launch_counts``."""
         device = self.update_fn.schedule.device
-        upd = self.update_fn
-        kernels = self._kernels()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        for generator in (self.rollout_fn.generator, upd.generator):
+        for generator in generators:
             graph.register_generator_state(generator)
-        before = {kernel: kernel.launches for kernel in kernels}
-        # The gradients the graph's backward makes come from its pool.
-        upd.optimizer.zero_grad(set_to_none=True)
+        before = {kernel: kernel.launches for kernel in self.kernels}
+        before_capture()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         with self.clock.span("launch.capture", always=True) as captured:
-            with torch.cuda.graph(graph, stream=self._stream):
-                self._graph_body()
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  **graph_options):
+                fn()
         with self.clock.span("launch.instantiate", always=True) as built:
             graph.instantiate()
             torch.cuda.synchronize(device)
         # A capture launches nothing: its counts move to every replay.
-        self._replay_launches = {kernel: kernel.launches - n
-                                 for kernel, n in before.items()}
-        self.capture = dict(
+        launches = self._launches[name] = {
+            kernel: kernel.launches - n for kernel, n in before.items()}
+        for kernel, n in before.items():
+            kernel.launches = n
+        return graph, dict(
             capture_s=captured.seconds, instantiate_s=built.seconds,
             nodes=graph_nodes(graph),
             pool_bytes=torch.cuda.memory_reserved(device) - reserved,
-            reset_launches=self._reset_launches(self._replay_launches),
-            attention_launches=self._attention_launches(
-                self._replay_launches))
-        for kernel, n in before.items():
-            kernel.launches = n
-        self._graph = graph
+            **launch_counts(launches, self.rollout_fn.env.reset_kernel))
+
+    def _replay_graph(self, name: str, graph) -> None:
+        """Replays graph ``name`` and counts the launches it holds."""
+        graph.replay()
+        for kernel, n in self._launches[name].items():
+            kernel.launches += n
+
+    def _capture(self) -> None:
+        """One device: the whole update, one graph. (The gradients the
+        graph's backward makes come from its pool.)"""
+        if self.mesh is not None:
+            self._capture_segments()
+            return
+        upd = self.update_fn
+        self._graph, self.capture = self._capture_graph(
+            "update", self._graph_body,
+            (self.rollout_fn.generator, upd.generator),
+            lambda: upd.optimizer.zero_grad(set_to_none=True))
 
     def _capture_segments(self) -> None:
         """Under a mesh: each segment of ``mesh_update`` captured once, into
@@ -461,51 +470,22 @@ class FusedTrainLoop(Segments):
             fn()
         elif self._mode == "capture":
             if name not in self._graphs:
-                self._capture_segment(name, fn, generators)
+                # thread_local: the process group's own threads (NCCL's
+                # watchdog) may query the device while this thread captures.
+                device = self.update_fn.schedule.device
+                graph, self.capture["segments"][name] = self._capture_graph(
+                    name, fn, generators,
+                    lambda: torch.cuda.synchronize(device), pool=self._pool,
+                    capture_error_mode="thread_local")
+                if self._pool is None:
+                    self._pool = graph.pool()
+                self._graphs[name] = graph
         else:
-            self._graphs[name].replay()
-            for kernel, n in self._segment_launches[name].items():
-                kernel.launches += n
+            self._replay_graph(name, self._graphs[name])
 
     def collective(self, fn) -> None:
         if self._mode != "capture":
             fn()
-
-    def _capture_segment(self, name: str, fn, generators) -> None:
-        device = self.update_fn.schedule.device
-        kernels = self._kernels()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        for generator in generators:
-            graph.register_generator_state(generator)
-        before = {kernel: kernel.launches for kernel in kernels}
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        with self.clock.span("launch.capture", always=True) as captured:
-            # thread_local: the process group's own threads (NCCL's
-            # watchdog) may query the device while this thread captures.
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream,
-                                  capture_error_mode="thread_local"):
-                fn()
-        with self.clock.span("launch.instantiate", always=True) as built:
-            graph.instantiate()
-            torch.cuda.synchronize(device)
-        self._segment_launches[name] = {kernel: kernel.launches - n
-                                        for kernel, n in before.items()}
-        self.capture["segments"][name] = dict(
-            capture_s=captured.seconds, instantiate_s=built.seconds,
-            nodes=graph_nodes(graph),
-            pool_bytes=torch.cuda.memory_reserved(device) - reserved,
-            reset_launches=self._reset_launches(
-                self._segment_launches[name]),
-            attention_launches=self._attention_launches(
-                self._segment_launches[name]))
-        for kernel, n in before.items():
-            kernel.launches = n
-        if self._pool is None:
-            self._pool = graph.pool()
-        self._graphs[name] = graph
 
     def _adopt(self, state: RolloutState) -> RolloutState:
         """The buffers, holding ``state`` (copied in unless it is them, as
@@ -526,7 +506,5 @@ class FusedTrainLoop(Segments):
             finally:
                 self._mode = "eager"
             return tuple(outputs)
-        self._graph.replay()
-        for kernel, n in self._replay_launches.items():
-            kernel.launches += n
+        self._replay_graph("update", self._graph)
         return self._outputs

@@ -33,8 +33,11 @@ one of two ways, as ``use_pallas_attention`` says:
   windows straight from it (``ops/window_attention.py``, the CUDA forward
   kernel on the card). With ``pallas_backward`` the attention backward is
   the CUDA backward kernel too; without it, the plain PyTorch VJP. With
-  ``grouped`` (the JAX package's ``GROUPED_MODE``) the pair is the grouped
-  one: the minibatch sorted by worker, and a backward free of atomics.
+  ``grouped_attention`` (the JAX package's ``GROUPED_MODE``) the pair is the
+  grouped one: the minibatch sorted by worker, and a backward free of
+  atomics. ``pallas_backward`` without ``use_pallas_attention`` warns and
+  takes ``loss_gathered``, as in the JAX package. ``PPOUpdate.kernels``
+  lists the kernels the update launches.
 
 ``loss_window`` (JAX's ``_loss``) runs the model on the raw gathered windows;
 tests hold the other two against it.
@@ -56,27 +59,26 @@ kernels see a rank-local timeline. The part has a fixed size
 C = min(M, W/N * T), which no global minibatch can exceed, so no sample is
 dropped and no shape depends on the data (``rank_parts``): pad rows repeat
 the part's real samples in turn (the rank's sample 0 where it has none)
-and carry a mask of 0. ``rank_minibatches`` is the variable-size part, the
-host-side reference that tests hold the padded parts to. The loss is the
-rank's part of the global minibatch's: its advantages are normalised with
-the whole minibatch's mean and unbiased std (from the advantages of all
-workers, which the caller gathers once per update with the episode rows:
-one device's values in one device's order), every per-sample term is
-multiplied by the mask before each sum, and every mean is the rank's sum
-over the global count (``loss_from_outputs``). A pad row's upstream
-gradient is then exactly 0, and a part with no real sample adds exact
-zeros. After the backward one ``all_reduce`` of one flat buffer at a fixed
-address (``mesh.flat_views``: the gradients are views of it, the six stats
-follow) sums every gradient and the stats over the ranks; every rank then
-clips and steps alike. The update runs as the segments ``prepare``, then
-``part`` and ``step`` with the all-reduce between them once a minibatch,
-then ``result``, through a ``Segments`` runner: this module's runs each at
-once, ``training/fused.py``'s captures each into a CUDA graph and replays
-it, with the collectives between the replays. One device keeps its own
-body: no mask, no padding.
+and carry a mask of 0. The loss is the rank's part of the global
+minibatch's: its advantages are normalised with the whole minibatch's mean
+and unbiased std (from the advantages of all workers, which the caller
+gathers once per update with the episode rows: one device's values in one
+device's order), every per-sample term is multiplied by the mask before
+each sum, and every mean is the rank's sum over the global count
+(``loss_from_outputs``). A pad row's upstream gradient is then exactly 0,
+and a part with no real sample adds exact zeros. After the backward one
+``all_reduce`` of one flat buffer at a fixed address (``mesh.flat_views``:
+the gradients are views of it, the six stats follow) sums every gradient
+and the stats over the ranks; every rank then clips and steps alike. The
+update runs as the segments ``prepare``, then ``part`` and ``step`` with the
+all-reduce between them once a minibatch, then ``result``, through a
+``Segments`` runner: this module's runs each at once, ``training/fused.py``'s
+captures each into a CUDA graph and replays it, with the collectives between
+the replays. One device keeps its own body: no mask, no padding.
 """
 from __future__ import annotations
 
+import warnings
 from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple)
 
@@ -222,17 +224,21 @@ class Segments:
 class PPOUpdate:
     """One PPO update of ``model`` from a rollout batch. The per-epoch
     permutations come from ``generator`` unless the caller passes them.
-    ``grouped`` selects the grouped window-attention kernels (sorted by
-    worker) in place of the per-sample ones. With a ``mesh`` the batch is
-    this rank's workers' rows and the update is the global one (see the
-    module's docstring). ``clock`` stamps the phases ``ppo_update.prepare``
-    and every minibatch's ``ppo_update.loss`` and ``ppo_update.step``
-    (``utils/profiling.PhaseClock``)."""
+    The config chooses the loss and the window-attention kernels. With a
+    ``mesh`` the batch is this rank's workers' rows and the update is the
+    global one (see the module's docstring). ``clock`` stamps the phases
+    ``ppo_update.prepare`` and every minibatch's ``ppo_update.loss`` and
+    ``ppo_update.step`` (``utils/profiling.PhaseClock``)."""
 
     def __init__(self, config: TrainConfig, model: ActorCriticModel,
                  max_episode_steps: int, generator: torch.Generator,
-                 grouped: bool = False, mesh: Optional[DataMesh] = None,
+                 mesh: Optional[DataMesh] = None,
                  clock: Optional[PhaseClock] = None):
+        if config.pallas_backward and not config.use_pallas_attention:
+            warnings.warn(
+                "pallas_backward=True has no effect without "
+                "use_pallas_attention=True; the gathered-window loss (plain "
+                "PyTorch attention) is used.")
         self.config = config
         self.clock = clock or PhaseClock()
         self.model = model
@@ -255,7 +261,8 @@ class PPOUpdate:
         # plain VJP.
         self.kernel, backward_kernel = (
             (window_attention_fwd_grouped, window_attention_bwd_grouped)
-            if grouped else (window_attention_fwd, window_attention_bwd))
+            if config.grouped_attention
+            else (window_attention_fwd, window_attention_bwd))
         self.backward_kernel = (backward_kernel if config.pallas_backward
                                 else None)
         device = next(model.parameters()).device
@@ -267,6 +274,16 @@ class PPOUpdate:
         # (learning rate, clip range, beta) of the update: set_schedule fills
         # it, run reads it.
         self.schedule = torch.zeros(3, device=device)
+
+    @property
+    def kernels(self) -> Tuple:
+        """The CUDA kernels this update launches: ``kernel`` and
+        ``backward_kernel`` as they are now, none where the gathered loss
+        runs."""
+        if not self.config.use_pallas_attention:
+            return ()
+        return tuple(k for k in (self.kernel, self.backward_kernel)
+                     if k is not None)
 
     # --- losses: (mb, per-worker memory, its slots, clip, beta) -----------
 
@@ -390,22 +407,11 @@ class PPOUpdate:
         rows = self.mesh.worker_rows(self.config.n_workers)
         return rows.start * T, rows.stop * T
 
-    def rank_minibatches(self, mb_indices: torch.Tensor
-                         ) -> List[torch.Tensor]:
-        """This rank's part of each global minibatch (a row of
-        ``mb_indices``, global sample indices ``w * T + t``): the samples of
-        its own workers, in the row's order, as rank-local indices; possibly
-        none. Sized on the host: the reference ``rank_parts`` is held to."""
-        lo, hi = self._rank_span()
-        mine = (mb_indices >= lo) & (mb_indices < hi)
-        counts = mine.sum(dim=1).tolist()
-        first = torch.argsort((~mine).to(torch.int32), dim=1, stable=True)
-        local = torch.gather(mb_indices, 1, first) - lo
-        return [local[j, :c] for j, c in enumerate(counts)]
-
     def rank_parts(self, mb_indices: torch.Tensor) -> RankParts:
-        """``rank_minibatches`` at the fixed size C = min(M, W/N * T), on
-        the device, with no host read: the real samples first, in the row's
+        """This rank's part of each global minibatch (a row of
+        ``mb_indices``, global sample indices ``w * T + t``), at the fixed
+        size C = min(M, W/N * T), as rank-local indices, on the device, with
+        no host read: the samples of its own workers first, in the row's
         order, then pads that repeat them in turn (the rank's sample 0
         where it has none), masked."""
         lo, hi = self._rank_span()

@@ -20,12 +20,9 @@ under a mesh CUDA graphs of its segments with the collectives between them,
 replayed; the same chunks run eagerly on the CPU or under
 ``--debug-nans``) is printed at the first chunk.
 
-The loss and kernel choice is this trainer's (``config.use_pallas_attention``,
-``config.pallas_backward``, and ``config.grouped_attention`` for the grouped
-pair, which the keyword ``grouped`` overrides where given), not a module
-global: ``pallas_backward`` without
-``use_pallas_attention`` warns and takes the gathered-window loss, as in the
-JAX package. Each eager update's rollout and PPO update are the spans
+The loss and kernel choice is the config's (``use_pallas_attention``,
+``pallas_backward`` and ``grouped_attention``), made by its ``PPOUpdate``,
+not a module global. Each eager update's rollout and PPO update are the spans
 ``rollout`` and ``ppo_update`` of a profiler trace (``utils/profiling.py``);
 a chunk is the span ``launch``.
 
@@ -62,7 +59,6 @@ from __future__ import annotations
 
 import os
 import time
-import warnings
 from collections import deque
 from typing import Any, Dict, List, Optional
 
@@ -108,32 +104,23 @@ def _check_mesh(config: TrainConfig, mesh: Optional[DataMesh]
 class PPOTrainer:
     def __init__(self, config: TrainConfig, run_id: str = "run",
                  device="cuda", enable_metrics: bool = True,
-                 grouped: Optional[bool] = None,
                  mesh: Optional[DataMesh] = None, env: Any = None,
                  phase_clock: bool = False):
-        """``grouped``, where given, overrides ``config.grouped_attention``
-        (the grouped window-attention pair). With ``config.num_devices > 1``, ``mesh`` is this rank's
+        """With ``config.num_devices > 1``, ``mesh`` is this rank's
         (``parallel/mesh.py``) and the trainer runs on ``mesh.device``.
         ``env`` replaces the config's env (``envs.factory.create_env``): a
         host env of the caller's (a process pool of its own envs), which
         the host rollout starts with this rank's workers. ``phase_clock``
         turns the trainer's clock on (``utils/profiling.PhaseClock``)."""
         mesh = _check_mesh(config, mesh)
-        if config.pallas_backward and not config.use_pallas_attention:
-            warnings.warn(
-                "pallas_backward=True has no effect without "
-                "use_pallas_attention=True; the gathered-window loss (plain "
-                "PyTorch attention) is used.")
         self.config = config
         self.run_id = run_id
         self.mesh = mesh
         self.is_primary = mesh is None or mesh.is_primary
         self.device = resolve_device(device if mesh is None else mesh.device)
         self.clock = PhaseClock(phase_clock, self.device)
-        if grouped is None:
-            grouped = config.grouped_attention
         with self.clock.setup_span("setup.trainer"):
-            self._build(config, grouped, mesh, env)
+            self._build(config, mesh, env)
             self.update = 0
             self.writer = (
                 metrics_lib.MetricsWriter(config.summary_dir, run_id)
@@ -143,8 +130,8 @@ class PPOTrainer:
             self.episode_infos: deque = deque(maxlen=100)
             self.env_steps_per_update = config.n_workers * config.worker_steps
 
-    def _build(self, config: TrainConfig, grouped: bool,
-               mesh: Optional[DataMesh], env: Any) -> None:
+    def _build(self, config: TrainConfig, mesh: Optional[DataMesh],
+               env: Any) -> None:
         """The env, the model, the rollout, the update, the fused loop and
         the CUDA kernels, each of the first two and the update's optimizer
         and the kernels a span of the clock's set-up."""
@@ -188,8 +175,7 @@ class PPOTrainer:
         with clock.setup_span("setup.optimizer"):
             self.update_fn = PPOUpdate(config, self.model,
                                        self.max_episode_steps, update_gen,
-                                       grouped=grouped, mesh=mesh,
-                                       clock=clock)
+                                       mesh=mesh, clock=clock)
         self.rollout_state = self.rollout_fn.init_state()
         # Fusing updates needs the device rollout, as in the JAX package.
         self.fused_loop = self.fused_route = self._route_reason = None
@@ -200,14 +186,9 @@ class PPOTrainer:
                                              self.fused_route, mesh)
         with clock.setup_span("setup.kernels"):
             if self.device.type == "cuda":
-                upd = self.update_fn
-                if config.use_pallas_attention:
-                    for kernel in (upd.kernel, upd.backward_kernel):
-                        if kernel is not None:
-                            kernel.load()
-                for kernel in getattr(self.env, "kernels", ()):
+                for kernel in (*self.update_fn.kernels, *self.env.kernels,
+                               *clock.kernels):
                     kernel.load()
-                clock.load()
 
     @staticmethod
     def _extract_episode_infos(dones: np.ndarray, infos: Dict[str, np.ndarray]

@@ -21,19 +21,18 @@ The phase clock
 A ``PhaseClock`` belongs to a ``PPOTrainer`` (``trainer.clock``), which hands
 it to its rollout, its update and its fused loop. It is off unless the
 trainer is built with ``phase_clock=True``, as ``cli.py --profile DIR`` builds
-it (a keyword, as ``grouped`` is: the config holds the JAX package's keys
-alone); the CLI then writes the clock's record as
-``DIR/<run-id>/phases.json`` beside ``trace.json``. Its spans, each inside
-its parent:
+it (a keyword, not a key of the config); the CLI then writes the clock's
+record as ``DIR/<run-id>/phases.json`` beside ``trace.json``. Its spans,
+each inside its parent:
 
 * device, one set per update (``PHASES``): ``update``, from the first stamp
   to the last; in it ``rollout`` (``rollout.policy``: the K/V-cache step,
   the cache writes and the sampling; ``rollout.env_step``: the step draws
   and ``env.step``; ``rollout.env_reset``: the reset draws,
   ``env.reset_done`` (by default ``env.reset`` of all workers,
-  ``select_state`` and the obs ``where``; at Mystery Path Grid on CUDA one
-  kernel) and the memory and K/V cache resets; ``rollout.gae``: the
-  bootstrap value and GAE),
+  ``select_state`` and the obs ``where``; at Mystery Path Grid and Mortar
+  Mayhem Grid on CUDA one kernel) and the memory and K/V cache resets;
+  ``rollout.gae``: the bootstrap value and GAE),
   ``ppo_update`` (``ppo_update.prepare``; ``ppo_update.loss``: every
   minibatch's forward and backward; ``ppo_update.step``: clipping, the norm
   groups and AdamW) and ``outputs`` (the packing and the state write-back).
@@ -85,7 +84,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops.window_attention import _PACKAGE_DIR, _CudaKernel
+from .build import CSRC, CudaKernel
 
 TRACE_FILE = "trace.json"
 PHASES_FILE = "phases.json"
@@ -99,7 +98,7 @@ PHASES = ("update", "rollout", "rollout.policy", "rollout.env_step",
           "ppo_update.prepare", "ppo_update.loss", "ppo_update.step",
           "outputs")
 SLOT = {name: i for i, name in enumerate(PHASES)}
-STAMP_SOURCE = _PACKAGE_DIR / "csrc" / "phase_stamp.cu"
+STAMP_SOURCE = CSRC / "phase_stamp.cu"
 
 
 @contextlib.contextmanager
@@ -180,18 +179,15 @@ def parent(name: str) -> Optional[str]:
     return name.rsplit(".", 1)[0] if "." in name else "update"
 
 
-class PhaseStamp(_CudaKernel):
-    """The stamp kernel (``csrc/phase_stamp.cu``), built by nvcc into
-    ``_build`` like the window-attention kernels: ``stamp(buffer, close,
+class PhaseStamp(CudaKernel):
+    """The stamp kernel (``csrc/phase_stamp.cu``): ``stamp(buffer, close,
     open, phases)`` on the current stream. ``PhaseClock._host_stamp`` is its
     arithmetic on the host."""
 
+    default_source = STAMP_SOURCE
     symbol = "phase_stamp"
     n_pointers = 1
     n_ints = 3
-
-    def __init__(self, source=STAMP_SOURCE):
-        super().__init__(source)
 
     def __call__(self, buffer: torch.Tensor, close: int, open_: int,
                  phases: int) -> None:
@@ -228,10 +224,10 @@ class PhaseClock:
             if device.type == "cuda":
                 self._kernel = PhaseStamp()
 
-    def load(self) -> None:
-        """Builds and loads the stamp kernel (on CUDA, with the clock on)."""
-        if self._kernel is not None:
-            self._kernel.load()
+    @property
+    def kernels(self) -> Tuple[PhaseStamp, ...]:
+        """The stamp kernel (on CUDA, with the clock on), or none."""
+        return () if self._kernel is None else (self._kernel,)
 
     # --- device phases -----------------------------------------------------
 

@@ -104,6 +104,7 @@ def main() -> int:
     sys.path.insert(0, str(Path.cwd()))
     import chip_smoke
     from etmppo_tpu_torch.ops import window_attention as wa
+    from etmppo_tpu_torch.utils.build import BUILD_DIR
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -111,7 +112,7 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
     cls = getattr(wa, KERNELS[opts.kernel])
     source = Path(cls().source)
-    parts_dir = wa.BUILD_DIR / "parts"
+    parts_dir = BUILD_DIR / "parts"
     paths = variant_sources(source, opts.cut, parts_dir)
     kernels = {name: cls(path, parts_dir) for name, path in paths.items()}
     with ThreadPoolExecutor(max_workers=len(kernels)) as pool:

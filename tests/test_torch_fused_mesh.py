@@ -3,7 +3,8 @@
 
 * ``PPOUpdate.rank_parts`` (a rank's part of each global minibatch at the
   fixed size C = min(M, W/N * T), padded and masked, with no host read)
-  against ``rank_minibatches`` (the variable-size part, sized on the host);
+  against ``rank_parts_oracle.rank_minibatches`` (the variable-size part,
+  sized on the host);
 * the padded part's loss, stats and gradients against the variable part's
   on the four loss paths (the per-sample and grouped kernel pairs' plain
   versions, the gathered-window loss, the raw-window loss), and an all-pad
@@ -50,6 +51,7 @@ from etmppo_tpu_torch.parallel.mesh import DataMesh, spawn
 from etmppo_tpu_torch.training.ppo import STAT_NAMES, PPOUpdate
 from etmppo_tpu_torch.training.rollout import RolloutBatch
 from etmppo_tpu_torch.training.trainer import PPOTrainer
+from rank_parts_oracle import rank_minibatches
 
 torch.set_num_threads(1)
 
@@ -105,7 +107,7 @@ def test_rank_parts_hold_the_variable_parts(n, M, case):
         assert parts.local.shape == parts.mask.shape == (len(mb), C)
         assert parts.local.dtype == torch.int64
         assert parts.mask.dtype == torch.float32
-        for j, want in enumerate(upd.rank_minibatches(mb)):
+        for j, want in enumerate(rank_minibatches(upd, mb)):
             count = int(parts.counts[j])
             assert count == len(want)
             assert torch.equal(parts.local[j, :count], want)
@@ -186,14 +188,15 @@ def test_padded_part_equals_the_variable_part(trained, path, case):
     loss_path = "timeline" if path == "grouped" else path
     for r in range(2):
         mesh = DataMesh(r, 2, "cpu", "gloo")
-        upd = PPOUpdate(trainer.config, trainer.model,
-                        trainer.max_episode_steps, None,
-                        grouped=path == "grouped", mesh=mesh)
+        config = dataclasses.replace(trainer.config,
+                                     grouped_attention=path == "grouped")
+        upd = PPOUpdate(config, trainer.model, trainer.max_episode_steps,
+                        None, mesh=mesh)
         part = _rank_batch(batch, mesh.worker_rows(W))
         parts = upd.rank_parts(idx[None])
         loss, stats, grads = _loss_grads(upd, loss_path, part,
                                          parts.local[0], adv, parts.mask[0])
-        (mine,) = upd.rank_minibatches(idx[None])
+        (mine,) = rank_minibatches(upd, idx[None])
         if len(mine) == 0:
             assert case == "a rank without" and r == 1
             assert float(loss) == 0.0 and not stats.any()

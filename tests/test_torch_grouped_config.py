@@ -5,9 +5,8 @@ workers x 16 steps, TrXL 3 x 32, memory 8; the kernels' plain versions).
 * The key is false by default, and ``config_to_dict`` leaves it out then, so
   a config without it is the JAX package's dict; set, it round-trips, and
   the JAX package reads such a dict as it reads one without the key.
-* A trainer takes the pair the key names, and the keyword ``grouped``
-  overrides it; a trainer built from the key trains bit for bit as one
-  built with ``grouped=True``, and the ``.nn`` it saves loads as before.
+* A trainer takes the pair the key names, and the ``.nn`` a trainer built
+  from the key saves loads as before.
 * ``capture["attention_launches"]`` counts each window-attention kernel's
   launches in a captured update by symbol, on a stand-in for
   ``torch.cuda.graph`` whose replay runs the captured body.
@@ -29,17 +28,20 @@ from etmppo_tpu.training import checkpoint as jax_checkpoint
 from etmppo_tpu_torch import cli
 from etmppo_tpu_torch.config import (MORTAR_MAYHEM_GRID, config_from_dict,
                                      config_to_dict)
+from etmppo_tpu_torch.envs.mystery_path import MysteryPathReset
 from etmppo_tpu_torch.interop import state_dict_to_flax
 from etmppo_tpu_torch.ops.window_attention import (
-    window_attention_bwd, window_attention_bwd_grouped, window_attention_fwd,
-    window_attention_fwd_grouped)
+    ATTENTION_SYMBOLS, window_attention_bwd, window_attention_bwd_grouped,
+    window_attention_fwd, window_attention_fwd_grouped)
 from etmppo_tpu_torch.parallel.probe import CountingKernel
 from etmppo_tpu_torch.training import trainer as trainer_lib
 from etmppo_tpu_torch.training.checkpoint import load_model, save_model
-from etmppo_tpu_torch.training.fused import ATTENTION_SYMBOLS, FusedTrainLoop
+from etmppo_tpu_torch.training.fused import FusedTrainLoop, launch_counts
+from etmppo_tpu_torch.training.ppo import PPOUpdate
 from etmppo_tpu_torch.training.trainer import PPOTrainer
+from etmppo_tpu_torch.utils.profiling import PhaseClock
 from test_torch_checkpoint import _assert_trees_equal
-from test_torch_fused import _assert_equal, _stand_in_graphs, _state
+from test_torch_fused import _stand_in_graphs
 
 torch.set_num_threads(1)
 
@@ -59,9 +61,9 @@ def _raw(tmp_path, **overrides):
     return raw
 
 
-def _trainer(raw, grouped=None, run_id="run"):
+def _trainer(raw, run_id="run"):
     return PPOTrainer(config_from_dict(raw), run_id=run_id, device="cpu",
-                      enable_metrics=False, grouped=grouped)
+                      enable_metrics=False)
 
 
 def test_the_key_is_false_by_default_and_left_out_of_the_dict():
@@ -97,23 +99,11 @@ def test_the_cli_reads_the_key_from_a_config_file(suffix, tmp_path):
     assert cli._read_config(str(path)).grouped_attention
 
 
-@pytest.mark.parametrize("key,keyword,want", [
-    (False, None, PER_SAMPLE), (True, None, GROUPED),
-    (False, True, GROUPED), (True, False, PER_SAMPLE)])
-def test_a_trainer_takes_the_pair_the_key_names(key, keyword, want,
-                                                tmp_path):
-    trainer = _trainer(_raw(tmp_path, grouped_attention=key), keyword)
+@pytest.mark.parametrize("key,want", [(False, PER_SAMPLE), (True, GROUPED)])
+def test_a_trainer_takes_the_pair_the_key_names(key, want, tmp_path):
+    trainer = _trainer(_raw(tmp_path, grouped_attention=key))
     upd = trainer.update_fn
     assert (upd.kernel, upd.backward_kernel) == want
-
-
-def test_the_key_trains_as_the_keyword_does(tmp_path):
-    """The first update of a trainer built from the key equals, bit for bit,
-    that of one built with ``PPOTrainer(grouped=True)``."""
-    by_key = _trainer(_raw(tmp_path / "key", grouped_attention=True))
-    by_keyword = _trainer(_raw(tmp_path / "keyword"), grouped=True)
-    assert by_key.train_one_update() == by_keyword.train_one_update()
-    _assert_equal(_state(by_key), _state(by_keyword))
 
 
 def test_a_grouped_runs_model_loads_as_before(tmp_path):
@@ -159,15 +149,23 @@ def test_a_capture_counts_the_attention_launches(grouped, tmp_path,
 
 
 def test_the_count_reads_the_updates_own_pair_by_symbol():
-    """A kernel the update does not take (the other pair, the env's reset,
-    a backward of None) counts nothing."""
+    """The loop counts the kernels its components list: a kernel the
+    update does not take (the other pair, a backward of None) counts
+    nothing, nor does the env's reset kernel."""
     fwd, bwd = (CountingKernel(k) for k in GROUPED)
     other = CountingKernel(window_attention_fwd)
-    launches = {fwd: 72, bwd: 72, other: 120, "reset": 512}
+    reset = MysteryPathReset()
+    ran = {fwd: 72, bwd: 72, other: 120, reset: 512}
     for backward, want_bwd in ((bwd, 72), (None, 0)):
-        loop = SimpleNamespace(update_fn=SimpleNamespace(
-            kernel=fwd, backward_kernel=backward))
-        counts = FusedTrainLoop._attention_launches(loop, launches)
+        upd = SimpleNamespace(kernel=fwd, backward_kernel=backward,
+                              config=SimpleNamespace(
+                                  use_pallas_attention=True))
+        loop = SimpleNamespace(
+            update_fn=SimpleNamespace(kernels=PPOUpdate.kernels.fget(upd)),
+            rollout_fn=SimpleNamespace(env=SimpleNamespace(kernels=(reset,))),
+            clock=PhaseClock())
+        launches = {k: ran[k] for k in FusedTrainLoop.kernels.fget(loop)}
+        counts = launch_counts(launches, None)["attention_launches"]
         assert counts == dict(window_attention_fwd=0, window_attention_bwd=0,
                               window_attention_fwd_grouped=72,
                               window_attention_bwd_grouped=want_bwd)

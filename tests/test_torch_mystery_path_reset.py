@@ -165,15 +165,15 @@ def test_capture_counts_only_the_envs_reset_kernel():
     reset."""
     from types import SimpleNamespace
 
-    from etmppo_tpu_torch.training.fused import FusedTrainLoop
+    from etmppo_tpu_torch.training.fused import launch_counts
     reset, other, window = (MysteryPathReset() for _ in range(3))
     launches = {reset: 512, other: 7, window: 48}
     for env, want in ((SimpleNamespace(kernels=(other, reset),
                                        reset_kernel=reset), 512),
                       (SimpleNamespace(kernels=(other,), reset_kernel=None), 0),
                       (create_env(DEVICE_ENVS["Minigrid"], 2, "cpu"), 0)):
-        loop = SimpleNamespace(rollout_fn=SimpleNamespace(env=env))
-        assert FusedTrainLoop._reset_launches(loop, launches) == want
+        counts = launch_counts(launches, env.reset_kernel)
+        assert counts["reset_launches"] == want
 
 
 # --- on a card -------------------------------------------------------------

@@ -15,6 +15,7 @@ from etmppo_tpu.envs import native as jax_native
 from etmppo_tpu_torch.envs import native
 from etmppo_tpu_torch.envs.native import (ENV_TYPE_IDS, NativeEnvBatch,
                                           build_native_library)
+from etmppo_tpu_torch.utils import build
 
 pytestmark = pytest.mark.skipif(
     shutil.which("g++") is None, reason="needs a C++ toolchain")
@@ -32,19 +33,21 @@ def test_source_is_a_copy_of_the_jax_packages():
 
 def test_builds_into_its_own_directory(tmp_path, monkeypatch):
     """A fresh build goes to the build directory under a name keyed by the
-    source and flags; nothing under native/ is written."""
+    source and flags, beside g++'s report; nothing under native/ is
+    written."""
     jax_native.build_native_library()   # the JAX package's library, fresh
     before = {n: os.path.getmtime(os.path.join(NATIVE_DIR, n))
               for n in os.listdir(NATIVE_DIR)}
-    assert native.library_path().parent == native.BUILD_DIR
-    assert native.BUILD_DIR.name == "_build"
-    assert native.BUILD_DIR.parent.name == "etmppo_tpu_torch"
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    assert native.library_path().parent == build.BUILD_DIR
+    assert build.BUILD_DIR.name == "_build"
+    assert build.BUILD_DIR.parent.name == "etmppo_tpu_torch"
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
     path = build_native_library()
     assert path.parent == tmp_path / "_build" and path.exists()
     assert path.name.startswith("env_batch_") and path.suffix == ".so"
     assert build_native_library() == path            # reused, not rebuilt
-    assert os.listdir(tmp_path / "_build") == [path.name]  # no temporary
+    assert sorted(os.listdir(tmp_path / "_build")) == sorted(
+        [path.name, build.report_path(path).name])   # no temporary
     batch = NativeEnvBatch("PocMemoryEnv-native")
     assert batch.observation_shape == (3,)
     after = {n: os.path.getmtime(os.path.join(NATIVE_DIR, n))

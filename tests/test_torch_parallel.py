@@ -8,6 +8,7 @@ ranks, is the whole minibatch's loss.
 Every spawned group meets at a rendezvous of its own and is bounded by
 ``spawn``'s timeouts; ``spawn`` kills what survives.
 """
+import dataclasses
 import socket
 from typing import NamedTuple
 
@@ -26,6 +27,7 @@ from etmppo_tpu_torch.parallel.mesh import (DATA_AXIS, DataMesh,
 from etmppo_tpu_torch.training.ppo import STAT_NAMES, PPOUpdate
 from etmppo_tpu_torch.training.rollout import RolloutBatch
 from etmppo_tpu_torch.training.trainer import PPOTrainer
+from rank_parts_oracle import rank_minibatches
 
 torch.set_num_threads(1)
 
@@ -221,8 +223,9 @@ def test_rank_losses_sum_to_the_global_minibatch(trained, path, n, case):
     """On the plain versions of the per-sample and grouped kernel pairs
     (the CPU's), the gathered-window loss and the raw-window loss."""
     trainer, batch = trained
-    upd = PPOUpdate(trainer.config, trainer.model, trainer.max_episode_steps,
-                    None, grouped=path == "grouped")
+    config = dataclasses.replace(trainer.config,
+                                 grouped_attention=path == "grouped")
+    upd = PPOUpdate(config, trainer.model, trainer.max_episode_steps, None)
     loss_path = "timeline" if path == "grouped" else path
     idx = CASES[case](torch.Generator().manual_seed(n), n)
     loss, stats, grads = _loss_grads(upd, loss_path, batch, idx)
@@ -233,10 +236,9 @@ def test_rank_losses_sum_to_the_global_minibatch(trained, path, n, case):
     sizes = []
     for r in range(n):
         mesh = DataMesh(r, n, "cpu", "gloo")
-        local = PPOUpdate(trainer.config, trainer.model,
-                          trainer.max_episode_steps, None,
-                          grouped=path == "grouped", mesh=mesh)
-        (mine,) = local.rank_minibatches(idx[None])
+        local = PPOUpdate(config, trainer.model, trainer.max_episode_steps,
+                          None, mesh=mesh)
+        (mine,) = rank_minibatches(local, idx[None])
         sizes.append(len(mine))
         if len(mine) == 0:
             continue
@@ -280,7 +282,7 @@ def test_a_wrong_rank_loss_misses_the_global_minibatch(trained, path, wrong):
         mesh = DataMesh(r, 2, "cpu", "gloo")
         local = PPOUpdate(trainer.config, trainer.model,
                           trainer.max_episode_steps, None, mesh=mesh)
-        (mine,) = local.rank_minibatches(idx[None])
+        (mine,) = rank_minibatches(local, idx[None])
         rows = mesh.worker_rows(W)
         part = _rank_batch(batch, rows)
         if wrong == "local statistics":

@@ -74,7 +74,8 @@ def test_a_replayed_graph_stamps_rising_times():
     nodes = {}
     for on in (False, True):
         clock = PhaseClock(on, device)
-        clock.load()
+        for kernel in clock.kernels:
+            kernel.load()
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):

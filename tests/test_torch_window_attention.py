@@ -141,12 +141,3 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernel(*t, H)
     assert kernel.launches == 0
-
-
-def test_library_path_depends_on_source(tmp_path):
-    src = tmp_path / "k.cu"
-    src.write_text("// a")
-    a = WindowAttentionForward(src, tmp_path / "build").library_path()
-    src.write_text("// b")
-    b = WindowAttentionForward(src, tmp_path / "build").library_path()
-    assert a != b and a.parent == tmp_path / "build"

@@ -21,8 +21,7 @@ import jax.numpy as jnp
 
 from etmppo_tpu.ops import pallas_window_attention as pwa
 from etmppo_tpu_torch.ops.window_attention import (
-    BWD_SOURCE, WindowAttentionBackward, window_attention,
-    window_attention_bwd_plain)
+    WindowAttentionBackward, window_attention, window_attention_bwd_plain)
 
 torch.set_num_threads(1)
 
@@ -146,15 +145,3 @@ def test_backward_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernel(*t, torch.as_tensor(g), H)
     assert kernel.launches == 0 and kernel._lib is None
-
-
-def test_backward_library_path_depends_on_source(tmp_path):
-    src = tmp_path / "window_attention_bwd.cu"
-    src.write_text("// a")
-    a = WindowAttentionBackward(src, tmp_path / "build").library_path()
-    src.write_text("// b")
-    b = WindowAttentionBackward(src, tmp_path / "build").library_path()
-    assert a != b and a.parent == tmp_path / "build"
-    assert a.name.startswith("window_attention_bwd_")
-    assert WindowAttentionBackward().source == BWD_SOURCE
-    assert BWD_SOURCE.exists()

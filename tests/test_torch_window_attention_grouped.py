@@ -16,7 +16,7 @@ tests/test_pallas_attention.py runs them).
 * The autograd op takes the grouped plain versions for CPU tensors when the
   grouped kernels are passed, and never builds or launches them; the CUDA
   wrappers refuse CPU tensors.
-* One PPO update with ``PPOUpdate(grouped=True)`` (and ``pallas_backward``)
+* One PPO update with ``grouped_attention`` (and ``pallas_backward``)
   on a tiny Mortar Mayhem Grid model against the JAX package's update with
   ``GROUPED_MODE = True`` and ``BACKWARD_MODE = "pallas"`` (monkeypatched and
   restored): the loss, the stats and every clipped gradient agree to 1e-4
@@ -43,8 +43,8 @@ from etmppo_tpu_torch.config import config_from_dict
 from etmppo_tpu_torch.interop import flax_to_state_dict, load_flax_params
 from etmppo_tpu_torch.models.actor_critic import ActorCriticModel
 from etmppo_tpu_torch.ops.window_attention import (
-    BWD_GROUPED_SOURCE, FWD_GROUPED_SOURCE, WindowAttentionBackwardGrouped,
-    WindowAttentionForwardGrouped, _sorted_by_worker, window_attention,
+    WindowAttentionBackwardGrouped, WindowAttentionForwardGrouped,
+    _sorted_by_worker, window_attention,
     window_attention_bwd_grouped, window_attention_bwd_plain,
     window_attention_fwd_grouped, window_attention_grouped_bwd_plain,
     window_attention_grouped_plain)
@@ -228,20 +228,6 @@ def test_grouped_wrappers_reject_cpu_tensors(cls):
     with pytest.raises(ValueError, match="CUDA"):
         kernel(*t, *extra, H)
     assert kernel.launches == 0 and kernel._lib is None
-
-
-@pytest.mark.parametrize("cls,source", [
-    (WindowAttentionForwardGrouped, FWD_GROUPED_SOURCE),
-    (WindowAttentionBackwardGrouped, BWD_GROUPED_SOURCE)])
-def test_grouped_library_path_depends_on_source(tmp_path, cls, source):
-    src = tmp_path / source.name
-    src.write_text("// a")
-    a = cls(src, tmp_path / "build").library_path()
-    src.write_text("// b")
-    b = cls(src, tmp_path / "build").library_path()
-    assert a != b and a.parent == tmp_path / "build"
-    assert a.name.startswith(source.stem + "_")
-    assert cls().source == source and source.exists()
     assert cls.plain in (window_attention_grouped_plain,
                          window_attention_grouped_bwd_plain)
 
@@ -333,12 +319,12 @@ def grouped_step():
     assert calls["fwd"] >= jcfg.transformer.num_blocks and calls["bwd"]
     j_grads, _ = jppo.clip_grads_torch(j_grads, jcfg.max_grad_norm)
 
-    tcfg = config_from_dict(dataclasses.asdict(jcfg))
+    tcfg = dataclasses.replace(config_from_dict(dataclasses.asdict(jcfg)),
+                               grouped_attention=True)
     model = ActorCriticModel(tcfg, env.observation_shape, env.action_branches,
                              env.max_episode_steps, device="cpu")
     load_flax_params(model, params)
-    update = PPOUpdate(tcfg, model, env.max_episode_steps, generator=None,
-                       grouped=True)
+    update = PPOUpdate(tcfg, model, env.max_episode_steps, generator=None)
     assert update.kernel is window_attention_fwd_grouped
     assert update.backward_kernel is window_attention_bwd_grouped
     launches = (window_attention_fwd_grouped.launches,
@@ -370,8 +356,8 @@ def test_grouped_without_pallas_backward_takes_the_plain_vjp():
     """GROUPED_MODE with BACKWARD_MODE = "xla": the grouped forward and the
     plain VJP."""
     tcfg = dataclasses.replace(config_from_dict(dataclasses.asdict(
-        _jax_config())), pallas_backward=False)
+        _jax_config())), pallas_backward=False, grouped_attention=True)
     model = ActorCriticModel(tcfg, (84, 84, 3), (5,), 120, device="cpu")
-    update = PPOUpdate(tcfg, model, 120, generator=None, grouped=True)
+    update = PPOUpdate(tcfg, model, 120, generator=None)
     assert update.kernel is window_attention_fwd_grouped
     assert update.backward_kernel is None

@@ -11,8 +11,8 @@ ones the C entries accept; the sort is the stable (worker, start) sort; the
 runs split each worker's samples into runs of at most R; a run's tiles reach
 every window row of its samples exactly once; and the backward's second
 pass visits exactly the samples whose window meets its rows. The grouped
-backward's source holds no atomics, and the grouped libraries are rebuilt
-when a header they include changes.
+backward's source holds no atomics (``tests/test_torch_build.py`` rebuilds
+the libraries when a header they include changes).
 """
 import functools
 import re
@@ -275,7 +275,7 @@ def test_reduce_candidates_hold_the_samples_that_meet_the_tile(case):
             assert {j for j in range(j_lo, j_hi) if meets(j, w, t0)} == wanted
 
 
-# --- sources and libraries -----------------------------------------------
+# --- sources -------------------------------------------------------------
 
 def _with_headers(source: Path) -> str:
     text = source.read_text()
@@ -289,18 +289,3 @@ def test_grouped_backward_source_has_no_atomics():
     text = _with_headers(wa.BWD_GROUPED_SOURCE)
     assert "atomicAdd" not in text
     assert not re.search(r"\bred\.", text)
-
-
-@pytest.mark.parametrize("cls", [wa.WindowAttentionForwardGrouped,
-                                 wa.WindowAttentionBackwardGrouped])
-@pytest.mark.parametrize("header", ["window_ring.cuh", "window_runs.cuh"])
-def test_grouped_library_path_depends_on_its_headers(tmp_path, cls, header):
-    source = cls().source
-    assert f'#include "{header}"' in source.read_text()
-    (tmp_path / source.name).write_text(source.read_text())
-    for h in ("window_ring.cuh", "window_runs.cuh"):
-        (tmp_path / h).write_text((CSRC / h).read_text())
-    first = cls(tmp_path / source.name, tmp_path / "build").library_path()
-    (tmp_path / header).write_text((CSRC / header).read_text() + "\n// x")
-    second = cls(tmp_path / source.name, tmp_path / "build").library_path()
-    assert first != second

@@ -132,19 +132,6 @@ def test_per_sample_wrappers_pass_the_plan():
         assert kernel.n_ints == 7 + len(wa.GroupedPlan._fields)
 
 
-def test_library_path_depends_on_included_header(tmp_path):
-    """A change to a header that a kernel includes from its own directory
-    (the per-sample kernels' csrc/window_ring.cuh) rebuilds the kernel."""
-    src = tmp_path / "k.cu"
-    src.write_text('#include "ring.cuh"\n// a')
-    header = tmp_path / "ring.cuh"
-    header.write_text("// one")
-    first = wa.WindowAttentionForward(src, tmp_path / "build").library_path()
-    header.write_text("// two")
-    second = wa.WindowAttentionForward(src, tmp_path / "build").library_path()
-    assert first != second
-
-
 def test_per_sample_kernels_share_the_ring():
     """Both per-sample kernels include the one ring header, and the wrapper's
     shared-memory count uses its ring depth and barrier floats."""
